@@ -28,11 +28,9 @@ Python form, which the tests hold it against.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
 import os
 import struct
-import subprocess
 import threading
 import zlib
 from typing import List, Tuple
@@ -42,6 +40,7 @@ import torch
 
 from .cdf import NBINS, PRECISION
 from .interleaved import EncodedStreams, _plan_steps
+from .native import CSRC_DIR, build_native
 
 MAGIC = b"LIC2"
 _HEADER = struct.Struct("<4sQIQII")
@@ -50,9 +49,7 @@ RANS_L = 1 << 32
 # container's plausible symbol count by its payload's information capacity
 _MIN_SYMBOL_BITS = -math.log2(float(PRECISION - (NBINS - 1)) / PRECISION)
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_CHAIN_SRC = os.path.join(_PKG, "csrc", "chain.cpp")
-_BUILD_DIR = os.path.join(_PKG, "build")
+_CHAIN_SRC = os.path.join(CSRC_DIR, "chain.cpp")
 _chain_lock = threading.Lock()
 _chain_lib = None
 
@@ -69,22 +66,9 @@ def _chain():
     with _chain_lock:
         if _chain_lib is not None:
             return _chain_lib
-        with open(_CHAIN_SRC, "rb") as f:
-            key = hashlib.sha256(f.read()).hexdigest()[:16]
-        so = os.path.join(_BUILD_DIR, f"chain-{key}.so")
-        if not os.path.exists(so):
-            os.makedirs(_BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            proc = subprocess.run(
-                ["g++", "-O3", "-fPIC", "-shared", "-std=c++17", _CHAIN_SRC,
-                 "-o", tmp],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"g++ failed to build {_CHAIN_SRC}:\n{proc.stderr}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
+        lib = ctypes.CDLL(build_native(
+            _CHAIN_SRC, "g++", ["-O3", "-fPIC", "-shared", "-std=c++17"],
+            "chain"))
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.chain_pack.restype = i
         lib.chain_pack.argtypes = [i, p, p, i, i, p]

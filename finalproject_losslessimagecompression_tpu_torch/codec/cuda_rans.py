@@ -33,20 +33,17 @@ A failed build or launch raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
 import threading
 from typing import Optional
 
 import torch
 
 from .interleaved import decode_plain, encode_plain
+from .native import CSRC_DIR, build_native
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "rans_kernels.cu")
-_BUILD_DIR = os.path.join(_PKG, "build")
+_SRC = os.path.join(CSRC_DIR, "rans_kernels.cu")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -69,22 +66,7 @@ def _nvcc() -> str:
 
 def build() -> str:
     """Compile the kernels (once per source hash) and return the .so path."""
-    with open(_SRC, "rb") as f:
-        src = f.read()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = os.path.join(_BUILD_DIR, f"rans_kernels-{key}.so")
-    if os.path.exists(so):
-        return so
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {_SRC}:\n{proc.stderr}")
-    os.replace(tmp, so)
-    return so
+    return build_native(_SRC, _nvcc(), NVCC_FLAGS, "rans_kernels")
 
 
 def _load():
@@ -132,10 +114,13 @@ def rans_encode(v: torch.Tensor, m: torch.Tensor, s: torch.Tensor,
     """Encode [k, S] tiles: window-clamped bins v (int32), means and scales
     (float32), window lower bounds (int32), optional [S] int64 seeds.
     Returns (words [k, S] int64, flags [k, S] int32, hi [S] int64,
-    lo [S] int64).  k is a multiple of 16, S >= 1."""
+    lo [S] int64).  k is a multiple of 16; on the card S is at most
+    MAX_DECODE_STREAMS, the most the decode kernel takes."""
     if not v.is_cuda:
         return encode_plain(v, m, s, lower, seeds)
     k, S = v.shape
+    # refuse what the card cannot decode, so that no such container is written
+    check_streams(S)
     dev = v.device
     for t, name, dt in ((v, "v", torch.int32), (m, "mean", torch.float32),
                         (s, "scale", torch.float32),
@@ -163,11 +148,16 @@ def rans_encode(v: torch.Tensor, m: torch.Tensor, s: torch.Tensor,
 rans_encode.launches = 0
 
 
+def check_streams(S: int) -> None:
+    """Both kernels take 1..MAX_DECODE_STREAMS streams per container."""
+    if not 1 <= S <= MAX_DECODE_STREAMS:
+        raise ValueError(f"the rANS kernels take 1..{MAX_DECODE_STREAMS} "
+                         f"streams, got {S}")
+
+
 def decode_launch_shape(S: int):
     """(threads, streams per thread) of the one-CTA decode launch."""
-    if not 1 <= S <= MAX_DECODE_STREAMS:
-        raise ValueError(f"decode kernel takes 1..{MAX_DECODE_STREAMS} "
-                         f"streams, got {S}")
+    check_streams(S)
     per = 1
     while per * 1024 < S:
         per *= 2

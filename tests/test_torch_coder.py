@@ -40,6 +40,9 @@ from finalproject_losslessimagecompression_tpu_torch.codec.cdf import (
     lower_bin,
 )
 from finalproject_losslessimagecompression_tpu_torch.codec.cuda_rans import (
+    MAX_DECODE_STREAMS,
+    check_streams,
+    decode_launch_shape,
     rans_decode,
     rans_encode,
 )
@@ -95,8 +98,8 @@ def test_port_imports_no_jax():
     package (checked in a fresh interpreter)."""
     mods = [
         f"{PORT}.{m}" for m in (
-            "codec", "codec.cdf", "codec.interleaved", "codec.cuda_rans",
-            "codec.container", "codec.coder", "ops", "ops.rounding",
+            "codec", "codec.cdf", "codec.interleaved", "codec.native",
+            "codec.cuda_rans", "codec.container", "codec.coder", "ops", "ops.rounding",
             "ops.reshape", "ops.dlogistic", "models", "models.config",
             "models.layers", "models.invertible", "models.idflow",
             "models.exact", "convert",
@@ -413,3 +416,17 @@ def test_cpp_chain_equals_python_chain():
     assert words_py == [int(w) for w in payload]
     with pytest.raises(ValueError):
         container.chain_unpack(S, state0, buf[:nw], 3)
+
+
+def test_kernel_stream_range():
+    """The kernels' stream range is checked before any launch: 1..8192
+    streams map onto one CTA of at most 1024 threads, and any other count
+    raises ValueError, so the card never encodes a container its decode
+    kernel cannot read.  Tolerance: exact."""
+    assert decode_launch_shape(8) == (32, 1)
+    assert decode_launch_shape(768) == (768, 1)
+    assert decode_launch_shape(1025) == (544, 2)
+    assert decode_launch_shape(MAX_DECODE_STREAMS) == (1024, 8)
+    for S in (0, MAX_DECODE_STREAMS + 1):
+        with pytest.raises(ValueError):
+            check_streams(S)
