@@ -10,27 +10,35 @@ Phases, each printing one JSON line:
 1. device   the card's name and power limit (nvidia-smi), CUDA version, and
             the time to build the rANS kernels (nvcc) and the container
             state chain (g++), built in parallel from csrc/.
-2. kernels  both rANS kernels against their plain PyTorch versions on the
-            same CUDA tensors at the flagship level shapes (S=384, k=256 and
-            S=768, k=64), with and without bits-back seeds, with
-            out-of-window symbols: words, flags, states and decoded values
-            must be bit-identical, and the decode must return the input with
-            every state back at 2^32 | seed.
-3. e2e      the main path at full width: FlowCodec over the flagship IDFlow
+2. depth    the latency of one step's irreducible chain on the card: a
+            one-warp probe runs the decode step (one CDF evaluation and the
+            64-bit multiply-add) and the encode step (reciprocal division
+            and multiply-add) back to back; k times it is a kernel's serial
+            depth floor, `depth_bound_ms`.
+3. kernels  the three rANS kernels against their plain PyTorch versions on
+            the same CUDA tensors at the flagship level shapes (S=384, k=256
+            and S=768, k=64), with and without bits-back seeds, with
+            out-of-window symbols: prepass records, words, flags, states and
+            decoded values must be bit-identical, and the decode must return
+            the input with every state back at 2^32 | seed.  Then C=4
+            containers in one launch each way against 4 plain calls, and a
+            decode of a random (corrupt) buffer against the plain decode.
+4. e2e      the main path at full width: FlowCodec over the flagship IDFlow
             (64x64x3, nflows 8, nsplit 3, DenseBlocks of growth 512 and
             depth 12), random weights from a seed with every projection
             perturbed off zero, compress_many then decompress_many(fetch=True)
             on a queue of 4 batches of 16 images; bit-exact, with launch
-            counts taken over exactly that run; then a torch.profiler pass
-            over one more queue (device time by kernel, idle share).
-4. large    an 8M-symbol message (S=8192, k=1024): the kernels against their
-            plain versions as in phase 2, then the whole encode and decode
+            counts taken over exactly that run (one launch of each coding
+            kernel per level); then a torch.profiler pass over one more
+            queue (device time by kernel, idle share).
+5. large    an 8M-symbol message (S=8192, k=1024): the kernels against their
+            plain versions as in phase 3, then the whole encode and decode
             timed, bit-exact.
 
 Then the `kernels` summary line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero; with
 no CUDA device, or outside the repository, it exits non-zero and prints no
-result.  `--quick` runs phases 1 and 2 only.
+result.  `--quick` runs phases 1-3 only.
 """
 
 import json
@@ -48,6 +56,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 CDF_FLOPS = 10  # float32 ops of one CDF evaluation (codec/cdf.py)
 SOURCE = "finalproject_losslessimagecompression_tpu_torch/csrc/rans_kernels.cu"
+ENC = ["rans_cdf_prepass_kernel", "rans_encode_kernel"]
+DEC = ["rans_decode_kernel"]
 TPU_KERNELS = "finalproject_losslessimagecompression_tpu/codec/pallas_rans.py"
 
 
@@ -75,6 +85,36 @@ def cuda_ms(fn, reps: int) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def device_ms(fn, reps: int, names) -> float:
+    """Device time per call of fn, which launches each kernel named in
+    `names` once: the sum over those kernels of their mean time per
+    recorded launch (torch.profiler, kernels only), so that the time of a
+    short kernel is not the host's time between launches, and a launch
+    the trace did not record does not lower the mean."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for name in names:
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and name in e.key and e.count > 0]
+        assert events, f"no device time recorded for {name}"
+        total += sum(e.self_device_time_total for e in events) / sum(
+            e.count for e in events) / 1e3
+    return total
+
+
+def max_err(pairs) -> int:
+    return max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+               for a, b in pairs)
 
 
 def bound(nbytes: float, flops: float):
@@ -122,7 +162,26 @@ def phase_device():
 
 
 # ---------------------------------------------------------------------------
-# phase 2: kernels against their plain versions
+# phase 2: the serial depth floor
+# ---------------------------------------------------------------------------
+
+
+def phase_depth(steps: int = 1 << 15):
+    """Nanoseconds per step of each coder's irreducible chain (one warp,
+    `steps` dependent steps, CUDA events)."""
+    from finalproject_losslessimagecompression_tpu_torch.codec import (
+        cuda_rans,
+    )
+
+    out = torch.empty(32, dtype=torch.int64, device="cuda")
+    ns = {kind: cuda_ms(lambda: cuda_rans.depth_probe(kind, steps, out), 3)
+          * 1e6 / steps for kind in cuda_rans.DEPTH_PROBES}
+    emit({"phase": "depth", "steps": steps, "ns_per_step": ns})
+    return ns
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 
@@ -138,31 +197,47 @@ def message(n: int, seed: int, dev):
     return [torch.from_numpy(a).to(dev) for a in (v, means, scales)]
 
 
-def kernel_case(S: int, k: int, seeded: bool, seed: int):
+def clamped_message(S: int, k: int, seed: int, C: int = 0):
+    """[k, S] (or [C, k, S]) window-clamped bins, means, scales and window
+    lower bounds of `message`."""
+    from finalproject_losslessimagecompression_tpu_torch.codec.cdf import (
+        NBINS,
+        lower_bin,
+    )
+
+    shape = (C, k, S) if C else (k, S)
+    v, m, s = (t.reshape(shape) for t in message(math.prod(shape), seed,
+                                                    "cuda"))
+    lower = lower_bin(m)
+    return torch.minimum(torch.maximum(v, lower), lower + NBINS - 1), m, s, \
+        lower
+
+
+def random_seeds(shape, seed: int):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, 2**32, shape, generator=g, device="cuda",
+                         dtype=torch.int64)
+
+
+def kernel_case(S: int, k: int, seeded: bool, seed: int, depth_ns):
     from finalproject_losslessimagecompression_tpu_torch.codec import (
         interleaved as IL,
     )
     from finalproject_losslessimagecompression_tpu_torch.codec.cdf import (
         NBINS,
         cdf_bits,
-        lower_bin,
     )
     from finalproject_losslessimagecompression_tpu_torch.codec.cuda_rans import (
         cdf_eval,
+        rans_cdf_prepass,
         rans_decode,
         rans_encode,
     )
 
     dev = torch.device("cuda")
     n = S * k
-    v, m, s = (t.reshape(k, S) for t in message(n, seed, dev))
-    lower = lower_bin(m)
-    vc = torch.minimum(torch.maximum(v, lower), lower + NBINS - 1)
-    seeds = None
-    if seeded:
-        g = torch.Generator(device=dev).manual_seed(seed)
-        seeds = torch.randint(0, 2**32, (S,), generator=g, device=dev,
-                              dtype=torch.int64)
+    vc, m, s, lower = clamped_message(S, k, seed)
+    seeds = random_seeds((S,), seed) if seeded else None
 
     # the kernels' CDF against torch's on the card, at the coded bins and
     # at random window positions
@@ -178,10 +253,17 @@ def kernel_case(S: int, k: int, seeded: bool, seed: int):
         f"kernel CDF agrees with cdf_bits on only {cdf_agree:.6f} of "
         f"evaluations (S={S}, k={k})")
 
+    rk = rans_cdf_prepass(vc, m, s, lower)
+    rp = IL.cdf_prepass_plain(vc, m, s, lower)
+    pre_err = max_err([(rk, rp)])
+    assert pre_err == 0, f"prepass kernel differs from plain (S={S}, k={k})"
+    c_start, freq, _ = IL.unpack_prepass(rk)
+    assert all(torch.equal(a, b) for a, b in zip(
+        (c_start, freq), IL.cdf_tiles(vc, m, s, lower)))
+
     wk, fk, hk, lk = rans_encode(vc, m, s, lower, seeds)
     wp, fp, hp, lp = IL.encode_plain(vc, m, s, lower, seeds)
-    enc_err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
-                  for a, b in ((wk, wp), (fk, fp), (hk, hp), (lk, lp)))
+    enc_err = max_err([(wk, wp), (fk, fp), (hk, hp), (lk, lp)])
     assert enc_err == 0, f"encode kernel differs from plain (S={S}, k={k})"
 
     buf, total = IL.compact(wk, fk)
@@ -191,13 +273,23 @@ def kernel_case(S: int, k: int, seeded: bool, seed: int):
     want_lo = seeds if seeded else torch.zeros_like(l2)
     assert torch.equal(l2, want_lo), "decode kernel: lo did not return"
     vp, h3, l3 = IL.decode_plain(buf, total, hk, lk, m, s, lower)
-    dec_err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
-                  for a, b in ((vk, vp), (h2, h3), (l2, l3)))
+    dec_err = max_err([(vk, vp), (h2, h3), (l2, l3)])
     assert dec_err == 0, f"decode kernel differs from plain (S={S})"
 
-    enc_ms = cuda_ms(lambda: rans_encode(vc, m, s, lower, seeds), 20)
+    # kernels: device time from the profiler; plain versions (hundreds of
+    # small torch kernels each) with CUDA events around the calls
+    pre_ms = device_ms(lambda: rans_cdf_prepass(vc, m, s, lower), 20,
+                       ["rans_cdf_prepass_kernel"])
+    pre_plain_ms = cuda_ms(lambda: IL.cdf_prepass_plain(vc, m, s, lower), 5)
+    enc_ms = device_ms(lambda: rans_encode(vc, m, s, lower, seeds), 20,
+                       ENC)
     enc_plain_ms = cuda_ms(lambda: IL.encode_plain(vc, m, s, lower, seeds), 2)
-    dec_ms = cuda_ms(lambda: rans_decode(buf, total, hk, lk, m, s, lower), 20)
+    dec_ms = device_ms(lambda: rans_decode(buf, total, hk, lk, m, s, lower),
+                       20, DEC)
+    # cross-check: CUDA events around back-to-back calls (the decode is
+    # long enough that the host's time between launches hides in it)
+    dec_event_ms = cuda_ms(
+        lambda: rans_decode(buf, total, hk, lk, m, s, lower), 20)
     dec_plain_ms = cuda_ms(
         lambda: IL.decode_plain(buf, total, hk, lk, m, s, lower), 1)
     nw = int(total)
@@ -205,34 +297,114 @@ def kernel_case(S: int, k: int, seeded: bool, seed: int):
     # written once, at the data's own widths (not the kernels' int64
     # interface buffers): 4 B per bin, mean, scale and lower bound, per
     # decoded value and per 32-bit seed, word and state limb; 1 B per
-    # emission flag; only the nw words this message emits
+    # emission flag; only the nw words this message emits; the prepass
+    # writes 16 B records (float64 1 / freq, 32-bit c_start and freq)
+    pre_bytes = n * (4 + 4 + 4 + 4) + n * 16
     enc_bytes = n * (4 + 4 + 4 + 4) + (4 * S if seeded else 0) \
         + 4 * nw + n * 1 + 2 * 4 * S
     dec_bytes = 4 * nw + 4 + 2 * 4 * S + n * (4 + 4 + 4) + n * 4 + 2 * 4 * S
+    # operations: 2 CDF evaluations per coded symbol (the decode's verified
+    # bracket needs CDF(v - 1) and CDF(v), as the encode does)
+    pre_bound = bound(pre_bytes, 2 * CDF_FLOPS * n)
     enc_bound = bound(enc_bytes, 2 * CDF_FLOPS * n)
-    dec_bound = bound(dec_bytes, 13 * CDF_FLOPS * n)
+    dec_bound = bound(dec_bytes, 2 * CDF_FLOPS * n)
     row = {"S": S, "k": k, "seeded": seeded, "cdf_agreement": cdf_agree,
            "num_words": nw,
+           "prepass": {"ms": pre_ms, "plain_ms": pre_plain_ms,
+                       "bound_ms": pre_bound[0], "bound_by": pre_bound[1],
+                       "depth_bound_ms": depth_ns["decode"] / 1e6,
+                       "max_abs_err": pre_err},
            "encode": {"ms": enc_ms, "plain_ms": enc_plain_ms,
                       "bound_ms": enc_bound[0], "bound_by": enc_bound[1],
+                      "depth_bound_ms": k * depth_ns["encode"] / 1e6,
                       "max_abs_err": enc_err},
-           "decode": {"ms": dec_ms, "plain_ms": dec_plain_ms,
+           "decode": {"ms": dec_ms, "event_ms": dec_event_ms,
+                      "plain_ms": dec_plain_ms,
                       "bound_ms": dec_bound[0], "bound_by": dec_bound[1],
+                      "depth_bound_ms": k * depth_ns["decode"] / 1e6,
                       "max_abs_err": dec_err}}
     emit({"phase": "kernels", **row})
     return row
 
 
-def phase_kernels():
+def grouped_case(C: int = 4, S: int = 768, k: int = 64, seed: int = 110):
+    """C seeded containers in one launch of each kernel against C plain
+    calls, bit for bit; the grouped launches timed beside one container's."""
+    from finalproject_losslessimagecompression_tpu_torch.codec import (
+        interleaved as IL,
+    )
+    from finalproject_losslessimagecompression_tpu_torch.codec.cuda_rans import (
+        rans_decode,
+        rans_encode,
+    )
+
+    vc, m, s, lower = clamped_message(S, k, seed, C)
+    seeds = random_seeds((C, S), seed)
+    wk, fk, hk, lk = rans_encode(vc, m, s, lower, seeds)
+    buf, total = IL.compact(wk, fk)
+    vk, h2, l2 = rans_decode(buf, total, hk, lk, m, s, lower)
+    enc_err = dec_err = 0
+    for c in range(C):
+        wp, fp, hp, lp = IL.encode_plain(vc[c], m[c], s[c], lower[c],
+                                         seeds[c])
+        enc_err = max(enc_err, max_err([(wk[c], wp), (fk[c], fp),
+                                        (hk[c], hp), (lk[c], lp)]))
+        vp, h3, l3 = IL.decode_plain(buf[c], total[c], hk[c], lk[c], m[c],
+                                     s[c], lower[c])
+        dec_err = max(dec_err, max_err([(vk[c], vp), (h2[c], h3),
+                                        (l2[c], l3)]))
+    assert enc_err == 0 and dec_err == 0, "grouped kernels differ from plain"
+    assert torch.equal(vk, vc) and torch.equal(l2, seeds)
+    res = {"phase": "grouped", "C": C, "S": S, "k": k,
+           "encode_max_abs_err": enc_err, "decode_max_abs_err": dec_err,
+           "encode_ms": device_ms(
+               lambda: rans_encode(vc, m, s, lower, seeds), 20, ENC),
+           "decode_ms": device_ms(
+               lambda: rans_decode(buf, total, hk, lk, m, s, lower), 20, DEC),
+           "encode_one_ms": device_ms(lambda: rans_encode(
+               vc[0], m[0], s[0], lower[0], seeds[0]), 20, ENC),
+           "decode_one_ms": device_ms(lambda: rans_decode(
+               buf[0], total[0], hk[0], lk[0], m[0], s[0], lower[0]), 20,
+               DEC)}
+    emit(res)
+    return res
+
+
+def corrupt_case(S: int = 384, k: int = 256, seed: int = 120):
+    """The decode kernel on a buffer and states of random words (no valid
+    message): it must still equal the plain decode bit for bit."""
+    from finalproject_losslessimagecompression_tpu_torch.codec import (
+        interleaved as IL,
+    )
+    from finalproject_losslessimagecompression_tpu_torch.codec.cuda_rans import (
+        rans_decode,
+    )
+
+    _, m, s, lower = clamped_message(S, k, seed)
+    buf = random_seeds((k * S,), seed)
+    hi, lo = random_seeds((S,), seed + 1), random_seeds((S,), seed + 2)
+    hi[::7] = 0  # some streams refill at once
+    total = torch.tensor(k * S // 2, device="cuda")
+    vk, h2, l2 = rans_decode(buf, total, hi, lo, m, s, lower)
+    vp, h3, l3 = IL.decode_plain(buf, total, hi, lo, m, s, lower)
+    err = max_err([(vk, vp), (h2, h3), (l2, l3)])
+    assert err == 0, "decode kernel differs from plain on a corrupt buffer"
+    res = {"phase": "corrupt", "S": S, "k": k, "decode_max_abs_err": err}
+    emit(res)
+    return res
+
+
+def phase_kernels(depth_ns):
     rows = []
     for i, (S, k) in enumerate(((384, 256), (768, 64))):
         for seeded in (False, True):
-            rows.append(kernel_case(S, k, seeded, seed=100 + 2 * i + seeded))
-    return rows
+            rows.append(kernel_case(S, k, seeded, 100 + 2 * i + seeded,
+                                    depth_ns))
+    return rows, grouped_case(), corrupt_case()
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the main path at full width
+# phase 4: the main path at full width
 # ---------------------------------------------------------------------------
 
 
@@ -289,15 +461,18 @@ def phase_e2e(batch: int = 16, queue: int = 4):
     codec.decompress_many(codec.compress_many(xs), fetch=True)
     torch.cuda.synchronize()
 
-    for wrapper in (cuda_rans.rans_encode, cuda_rans.rans_decode):
+    wrappers = {"rans_cdf_prepass_kernel": cuda_rans.rans_cdf_prepass,
+                "rans_encode_kernel": cuda_rans.rans_encode,
+                "rans_decode_kernel": cuda_rans.rans_decode}
+    for wrapper in wrappers.values():
         wrapper.launches = 0
     t0 = time.time()
     packed = codec.compress_many(xs)
     recs = codec.decompress_many(packed, fetch=True)
     wall = time.time() - t0
-    launches = {"rans_encode_kernel": cuda_rans.rans_encode.launches,
-                "rans_decode_kernel": cuda_rans.rans_decode.launches}
-    assert all(v > 0 for v in launches.values()), launches
+    launches = {name: w.launches for name, w in wrappers.items()}
+    # level-major queue passes: one launch of each kernel per level
+    assert all(v == cfg.nsplit for v in launches.values()), launches
     exact = all(np.array_equal(r, x) for r, x in zip(recs, xs_np))
     assert exact, "main path round trip is not bit-exact"
     real_bpd = float(np.mean([codec.real_bpd(b, i) for b, i in packed]))
@@ -321,17 +496,15 @@ def phase_e2e(batch: int = 16, queue: int = 4):
         torch.cuda.synchronize()
         return out, a.elapsed_time(b) / 1e3
 
-    per_batch, t_enc = timed(
-        lambda: [codec._compress_deferred(x) for x in xs])
+    per_batch, t_enc = timed(lambda: codec._compress_deferred_many(xs))
     flat = [e for encs, _ in per_batch for e in encs]
     blobs, t_pack = timed(lambda: pack_streams_many(flat))
     nl = cfg.nsplit
     packed2 = [(blobs[i * nl:(i + 1) * nl], info)
                for i, (_, info) in enumerate(per_batch)]
-    outs, t_dec = timed(
-        lambda: [codec._decompress_deferred(b, i) for b, i in packed2])
+    (_, oks), t_dec = timed(lambda: codec._decompress_deferred_many(packed2))
     _, t_verify = timed(lambda: codec._check_got(
-        [bool(torch.stack([ok for _, oks in outs for ok in oks]).all())]))
+        [bool(torch.stack(oks).all())]))
     res = {"phase": "e2e", "batch": batch, "queue": queue,
            "bit_exact": exact, "real_bpd": real_bpd,
            "analytic_bpd": analytic_bpd,
@@ -365,7 +538,10 @@ def profile_pass(codec, xs, unprofiled_wall: float, top: int = 12):
               and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in events)
     events.sort(key=lambda e: -e.self_device_time_total)
+    rans_us = sum(e.self_device_time_total for e in events
+                  if any(n in e.key for n in ENC + DEC))
     emit({"phase": "profile", "wall_s": wall, "device_busy_s": busy_us / 1e6,
+          "rans_device_ms": rans_us / 1e3,
           "device_idle_share": 1.0 - busy_us / 1e6 / wall,
           "device_idle_share_unprofiled": 1.0 - busy_us / 1e6
           / unprofiled_wall,
@@ -374,14 +550,15 @@ def profile_pass(codec, xs, unprofiled_wall: float, top: int = 12):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: an 8M-symbol message
+# phase 5: an 8M-symbol message
 # ---------------------------------------------------------------------------
 
 
-def phase_large(n: int = 8 * 2**20):
+def phase_large(depth_ns, n: int = 8 * 2**20):
     """The kernels against their plain versions on an 8M-symbol message,
     then the whole encode and decode (layout, kernels, compaction) timed."""
-    row = kernel_case(8192, n // 8192, seeded=False, seed=7)
+    row = kernel_case(8192, n // 8192, seeded=False, seed=7,
+                      depth_ns=depth_ns)
     from finalproject_losslessimagecompression_tpu_torch.codec import (
         interleaved as IL,
     )
@@ -419,7 +596,9 @@ def kernels_line(rows, e2e):
     head = [r for r in rows if r["S"] == 384 and not r["seeded"]][0]
     out = []
     for key, name, replaces, extra in (
-        ("encode", "rans_encode_kernel", f"{TPU_KERNELS}:199", {}),
+        ("prepass", "rans_cdf_prepass_kernel", f"{TPU_KERNELS}:214", {}),
+        ("encode", "rans_encode_kernel", f"{TPU_KERNELS}:199",
+         {"ms_includes": "rans_cdf_prepass_kernel"}),
         ("decode", "rans_decode_kernel", f"{TPU_KERNELS}:347",
          {"also_replaces": f"{TPU_KERNELS}:382"}),
     ):
@@ -432,10 +611,13 @@ def kernels_line(rows, e2e):
             "matches_plain": all(r[key]["max_abs_err"] == 0 for r in rows),
             "ms": h["ms"], "plain_ms": h["plain_ms"],
             "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
+            "depth_bound_ms": h["depth_bound_ms"],
             "library_ms": None,
             "shapes": [{"S": r["S"], "k": r["k"], "seeded": r["seeded"],
                         "ms": r[key]["ms"], "plain_ms": r[key]["plain_ms"],
-                        "bound_ms": r[key]["bound_ms"]} for r in rows],
+                        "bound_ms": r[key]["bound_ms"],
+                        "depth_bound_ms": r[key]["depth_bound_ms"]}
+                       for r in rows],
         })
     return {"kernels": out}
 
@@ -446,11 +628,12 @@ def main(argv) -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     smi = phase_device()
-    rows = phase_kernels()
+    depth_ns = phase_depth()
+    rows, _, _ = phase_kernels(depth_ns)
     e2e = None
     if "--quick" not in argv:
         e2e = phase_e2e()
-        rows.append(phase_large())
+        rows.append(phase_large(depth_ns))
     emit(kernels_line(rows, e2e))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -2,7 +2,9 @@
 
 Each split level is one interleaved-rANS container; symbols are the integer
 grid bins v = round(latent * 256), flattened in NHWC order.  Tensors stay on
-their device; only the packed byte containers cross to the host.
+their device; only the packed byte containers cross to the host.  The
+`*_many` forms code several containers at once, one kernel launch for
+those of the same stream layout.
 """
 
 from __future__ import annotations
@@ -12,18 +14,27 @@ from typing import List, Sequence
 import torch
 
 from .container import pack_streams, unpack_streams
-from .interleaved import interleaved_decode, interleaved_encode
+from .interleaved import interleaved_decode_many, interleaved_encode_many
+
+
+def encode_tensors_deferred(items, num_streams: int = 8192, seeds=None,
+                            sym_per_stream: int = 64):
+    """Start the encode of several (latent, mean, logscale) tensors, one
+    container each, without any host sync; seeds is a list of per-tensor
+    seeds (or None).  Pack later with container.pack_streams_many."""
+    flat = [(torch.round(z.to(torch.float32) * 256.0).to(torch.int32)
+             .reshape(-1), mean.reshape(-1),
+             torch.exp(logscale.to(torch.float32)).reshape(-1))
+            for z, mean, logscale in items]
+    return interleaved_encode_many(flat, seeds, num_streams, sym_per_stream)
 
 
 def encode_tensor_deferred(latent, mean, logscale, num_streams: int = 8192,
                            seeds=None, sym_per_stream: int = 64):
     """Start an encode without any host sync; pack later with
     container.pack_streams_many."""
-    v = torch.round(latent.to(torch.float32) * 256.0).to(torch.int32)
-    scale = torch.exp(logscale.to(torch.float32))
-    return interleaved_encode(v.reshape(-1), mean.reshape(-1),
-                              scale.reshape(-1), num_streams, seeds,
-                              sym_per_stream)
+    return encode_tensors_deferred([(latent, mean, logscale)], num_streams,
+                                   [seeds], sym_per_stream)[0]
 
 
 def encode_tensor(latent, mean, logscale, num_streams: int = 8192) -> bytes:
@@ -33,35 +44,52 @@ def encode_tensor(latent, mean, logscale, num_streams: int = 8192) -> bytes:
     )
 
 
-def decode_streams_deferred(enc, mean, logscale, fill=None, tail_start=0):
-    """Decode streams without a host sync.
+def decode_streams_deferred_many(encs, means, logscales, fills=None,
+                                 tail_starts=None):
+    """Decode several containers without a host sync.
 
-    Returns (x, ok, lo): decoded grid values shaped like `mean`, the
-    state-invariant flag (0-d bool tensor) and the final lo limbs.  For
-    bits-back chains the lo limbs of a seeded decode are the donor
-    container's omitted words: pass them as the donor's `fill`, and pass
-    the donor's donated count as this decode's `tail_start` so the check
-    skips the seeded prefix."""
-    if enc.n != mean.numel():
-        raise ValueError(
-            f"container symbol count {enc.n} does not match the "
-            f"parameter tensor size {mean.numel()}"
-        )
-    scale = torch.exp(logscale.to(torch.float32)).reshape(-1)
-    vals, hi, lo = interleaved_decode(enc, mean.reshape(-1), scale, fill)
-    if enc.oow_count:
-        # patch escaped out-of-window symbols with their true values
-        dev = vals.device
-        vals = vals.clone()
-        vals[torch.as_tensor(enc.oow_idx, dtype=torch.int64, device=dev)] = (
-            torch.as_tensor(enc.oow_vals, dtype=torch.int32, device=dev))
-    # a successful decode returns each stream to 2^32 | seed: hi == 1, and
-    # lo == 0 for every stream past `tail_start` (seeded streams' lo limbs
-    # are the donor's words, checked by the chain's last, unseeded level)
-    idx = torch.arange(lo.shape[0], device=lo.device)
-    ok = torch.all(hi == 1) & torch.all((idx < tail_start) | (lo == 0))
-    x = (vals.to(torch.float32) / 256.0).reshape(mean.shape)
-    return x, ok, lo
+    Returns one (x, ok, lo) per container: decoded grid values shaped like
+    its `mean`, the state-invariant flag (0-d bool tensor) and the final lo
+    limbs.  For bits-back chains the lo limbs of a seeded decode are the
+    donor container's omitted words: pass them as the donor's fill, and
+    pass the donor's donated count as this decode's tail start so the
+    check skips the seeded prefix."""
+    for enc, mean in zip(encs, means):
+        if enc.n != mean.numel():
+            raise ValueError(
+                f"container symbol count {enc.n} does not match the "
+                f"parameter tensor size {mean.numel()}"
+            )
+    tail_starts = tail_starts or [0] * len(encs)
+    scales = [torch.exp(ls.to(torch.float32)).reshape(-1) for ls in logscales]
+    decoded = interleaved_decode_many(
+        encs, [m.reshape(-1) for m in means], scales, fills)
+    out = []
+    for enc, mean, tail_start, (vals, hi, lo) in zip(encs, means,
+                                                     tail_starts, decoded):
+        if enc.oow_count:
+            # patch escaped out-of-window symbols with their true values
+            dev = vals.device
+            vals = vals.clone()
+            vals[torch.as_tensor(enc.oow_idx, dtype=torch.int64,
+                                 device=dev)] = torch.as_tensor(
+                enc.oow_vals, dtype=torch.int32, device=dev)
+        # a successful decode returns each stream to 2^32 | seed: hi == 1,
+        # and lo == 0 for every stream past `tail_start` (seeded streams' lo
+        # limbs are the donor's words, checked by the chain's last, unseeded
+        # level)
+        idx = torch.arange(lo.shape[0], device=lo.device)
+        ok = torch.all(hi == 1) & torch.all((idx < tail_start) | (lo == 0))
+        x = (vals.to(torch.float32) / 256.0).reshape(mean.shape)
+        out.append((x, ok, lo))
+    return out
+
+
+def decode_streams_deferred(enc, mean, logscale, fill=None, tail_start=0):
+    """Decode one container without a host sync (see
+    `decode_streams_deferred_many`): returns (x, ok, lo)."""
+    return decode_streams_deferred_many([enc], [mean], [logscale], [fill],
+                                        [tail_start])[0]
 
 
 def decode_tensor_deferred(blob: bytes, mean, logscale):

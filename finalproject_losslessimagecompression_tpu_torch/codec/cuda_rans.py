@@ -1,29 +1,34 @@
 """Hopper rANS kernels (csrc/rans_kernels.cu): build, binding and wrappers.
 
-Two kernels replace the three Pallas TPU kernels of the JAX package's
+Three kernels replace the three Pallas TPU kernels of the JAX package's
 `codec/pallas_rans.py`:
 
-- `rans_encode` launches `rans_encode_kernel`, which replaces
-  `_encode_kernel` (launched by `pallas_encode_core`): S streams advanced
-  over k steps, the CDF evaluated in-kernel, one thread per stream with a
-  native uint64_t state.
+- `rans_cdf_prepass` launches `rans_cdf_prepass_kernel`, which takes the
+  CDF evaluation of `_encode_kernel` out of the serial chain: one thread per
+  symbol writes (1 / freq as float64, c_start, freq).
+- `rans_encode` launches the prepass and then `rans_encode_kernel`, which
+  replaces the state loop of `_encode_kernel` (launched by
+  `pallas_encode_core`): one thread per stream with a native uint64_t state
+  and an exact float64-reciprocal division.
 - `rans_decode` launches `rans_decode_kernel`, which replaces both
   `_decode_kernel` (`pallas_decode_core`, buffer resident in VMEM) and
   `_decode_chunk_kernel` (`_pallas_decode_windowed`, buffer windowed from
   HBM): one CTA per container walks the steps in reverse, ranks the
-  refilling streams with a block-wide scan, and reads the words straight
-  from global memory, so no windowing is needed at any message length.
+  refilling streams with warp ballots and one barrier per step, pops the
+  words from a shared-memory ring that cp.async keeps filled, and finds
+  each symbol from an inverse-CDF guess and a verified bracket.
 
-What bounds them on an H100: the per-stream dependence over k steps and the
-low parallelism of one container (S <= 768 threads at the flagship levels);
-they move few bytes.  Batching a queue's containers into one launch is
-later work.
+Each wrapper takes one container ([k, S] tiles) or C containers of the same
+(S, k) ([C, k, S]), coded by one launch: a serving queue launches each
+kernel once per level.  What bounds them on an H100: the per-stream
+dependence over k steps (latency for the small containers, issue rate for
+the large ones: a container is one CTA on one SM); they move few bytes.
 
 Dispatch is by device: a CUDA tensor launches the kernel (or raises), a CPU
 tensor runs the plain version in codec/interleaved.py (`encode_plain`,
-`decode_plain`), which computes the same function.  Encode and decode
-derive the backend from the same predicate, the device of their tensors, so
-a message decodes on the backend that encoded it.
+`decode_plain`, `cdf_prepass_plain`), which computes the same function.
+Encode and decode derive the backend from the same predicate, the device of
+their tensors, so a message decodes on the backend that encoded it.
 
 The library is built with nvcc at first use into the package's `build/`
 directory, keyed by a hash of the source and flags, and bound with ctypes.
@@ -33,6 +38,7 @@ A failed build or launch raises.
 from __future__ import annotations
 
 import ctypes
+import math
 import os
 import shutil
 import threading
@@ -40,7 +46,7 @@ from typing import Optional
 
 import torch
 
-from .interleaved import decode_plain, encode_plain
+from .interleaved import cdf_prepass_plain, decode_plain, encode_plain
 from .native import CSRC_DIR, build_native
 
 _SRC = os.path.join(CSRC_DIR, "rans_kernels.cu")
@@ -75,15 +81,19 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(build())
             p, i = ctypes.c_void_p, ctypes.c_int
-            i64 = ctypes.c_int64
+            i64, f32 = ctypes.c_int64, ctypes.c_float
+            lib.rans_cdf_prepass_launch.restype = i
+            lib.rans_cdf_prepass_launch.argtypes = [p] * 5 + [i64, p]
             lib.rans_encode_launch.restype = i
-            lib.rans_encode_launch.argtypes = [p] * 9 + [i, i, p]
+            lib.rans_encode_launch.argtypes = [p] * 6 + [i, i, i, p]
             lib.rans_decode_launch.restype = i
             lib.rans_decode_launch.argtypes = (
-                [p, i64] + [p] * 9 + [i, i, i, i, p]
+                [p, i64] + [p] * 9 + [i] * 5 + [p]
             )
             lib.cdf_eval_launch.restype = i
             lib.cdf_eval_launch.argtypes = [p] * 5 + [i64, p]
+            lib.depth_probe_launch.restype = i
+            lib.depth_probe_launch.argtypes = [i, i, f32, f32, i, i, p, p]
             _lib = lib
     return _lib
 
@@ -109,54 +119,90 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def rans_encode(v: torch.Tensor, m: torch.Tensor, s: torch.Tensor,
-                lower: torch.Tensor, seeds: Optional[torch.Tensor] = None):
-    """Encode [k, S] tiles: window-clamped bins v (int32), means and scales
-    (float32), window lower bounds (int32), optional [S] int64 seeds.
-    Returns (words [k, S] int64, flags [k, S] int32, hi [S] int64,
-    lo [S] int64).  k is a multiple of 16; on the card S is at most
-    MAX_DECODE_STREAMS, the most the decode kernel takes."""
+def rans_cdf_prepass(v: torch.Tensor, m: torch.Tensor, s: torch.Tensor,
+                     lower: torch.Tensor) -> torch.Tensor:
+    """Coding records of window-clamped bins v (int32), means and scales
+    (float32) and window lower bounds (int32), all of one shape: int64
+    [..., 2] holding the float64 bits of 1 / freq, then
+    c_start | freq << 32 (`interleaved.unpack_prepass` splits them)."""
     if not v.is_cuda:
-        return encode_plain(v, m, s, lower, seeds)
-    k, S = v.shape
-    # refuse what the card cannot decode, so that no such container is written
-    check_streams(S)
+        return cdf_prepass_plain(v, m, s, lower)
     dev = v.device
     for t, name, dt in ((v, "v", torch.int32), (m, "mean", torch.float32),
                         (s, "scale", torch.float32),
                         (lower, "lower", torch.int32)):
-        _check(t, name, dt, (k, S), dev)
-    if seeds is not None:
-        _check(seeds, "seeds", torch.int64, (S,), dev)
-    lib = _load()
-    words = torch.empty((k, S), dtype=torch.int64, device=dev)
-    flags = torch.empty((k, S), dtype=torch.int32, device=dev)
-    hi = torch.empty(S, dtype=torch.int64, device=dev)
-    lo = torch.empty(S, dtype=torch.int64, device=dev)
-    err = lib.rans_encode_launch(
+        _check(t, name, dt, v.shape, dev)
+    rec = torch.empty((*v.shape, 2), dtype=torch.int64, device=dev)
+    err = _load().rans_cdf_prepass_launch(
         v.data_ptr(), m.data_ptr(), s.data_ptr(), lower.data_ptr(),
-        None if seeds is None else seeds.data_ptr(), words.data_ptr(),
-        flags.data_ptr(), hi.data_ptr(), lo.data_ptr(), S, k, _stream(),
+        rec.data_ptr(), v.numel(), _stream(),
+    )
+    _raise_if(err, "rans_cdf_prepass_kernel")
+    rans_cdf_prepass.launches += 1
+    return rec
+
+
+# launch counts: each wrapper adds one where it launches its kernel, and
+# nowhere else
+rans_cdf_prepass.launches = 0
+
+
+def rans_encode(v: torch.Tensor, m: torch.Tensor, s: torch.Tensor,
+                lower: torch.Tensor, seeds: Optional[torch.Tensor] = None):
+    """Encode [k, S] tiles, or C containers of [C, k, S] tiles, in one
+    launch: window-clamped bins v (int32), means and scales (float32),
+    window lower bounds (int32), optional [S] / [C, S] int64 seeds.
+    Returns (words int64 and flags int32 shaped like v, hi and lo int64
+    shaped like the seeds).  k is a multiple of 16; on the card S is at
+    most MAX_DECODE_STREAMS, the most the decode kernel takes."""
+    k, S = v.shape[-2:]
+    C = math.prod(v.shape[:-2])
+    if not v.is_cuda:
+        # streams are independent, so C containers code as one of C * S
+        # streams: [C, k, S] -> [k, C * S] and back
+        def flat(t):
+            return t.reshape(C, k, S).transpose(0, 1).reshape(k, C * S)
+
+        def back(t):
+            return t.reshape(k, C, S).transpose(0, 1).reshape(v.shape)
+
+        words, flags, hi, lo = encode_plain(
+            flat(v), flat(m), flat(s), flat(lower),
+            None if seeds is None else seeds.reshape(C * S))
+        lead = (*v.shape[:-2], S)
+        return back(words), back(flags), hi.reshape(lead), lo.reshape(lead)
+    # refuse what the card cannot decode, so that no such container is written
+    check_streams(S)
+    dev = v.device
+    if seeds is not None:
+        _check(seeds, "seeds", torch.int64, (*v.shape[:-2], S), dev)
+    rec = rans_cdf_prepass(v, m, s, lower)
+    words = torch.empty(v.shape, dtype=torch.int64, device=dev)
+    flags = torch.empty(v.shape, dtype=torch.int32, device=dev)
+    hi = torch.empty((*v.shape[:-2], S), dtype=torch.int64, device=dev)
+    lo = torch.empty_like(hi)
+    err = _load().rans_encode_launch(
+        rec.data_ptr(), None if seeds is None else seeds.data_ptr(),
+        words.data_ptr(), flags.data_ptr(), hi.data_ptr(), lo.data_ptr(),
+        C, S, k, _stream(),
     )
     _raise_if(err, "rans_encode_kernel")
     rans_encode.launches += 1
     return words, flags, hi, lo
 
 
-# launch counts: each wrapper adds one where it launches its kernel, and
-# nowhere else
 rans_encode.launches = 0
 
 
 def check_streams(S: int) -> None:
-    """Both kernels take 1..MAX_DECODE_STREAMS streams per container."""
+    """The kernels take 1..MAX_DECODE_STREAMS streams per container."""
     if not 1 <= S <= MAX_DECODE_STREAMS:
         raise ValueError(f"the rANS kernels take 1..{MAX_DECODE_STREAMS} "
                          f"streams, got {S}")
 
 
 def decode_launch_shape(S: int):
-    """(threads, streams per thread) of the one-CTA decode launch."""
+    """(threads, streams per thread) of a container's CTA."""
     check_streams(S)
     per = 1
     while per * 1024 < S:
@@ -168,30 +214,39 @@ def decode_launch_shape(S: int):
 def rans_decode(buf: torch.Tensor, num_words, hi: torch.Tensor,
                 lo: torch.Tensor, m: torch.Tensor, s: torch.Tensor,
                 lower: torch.Tensor):
-    """Decode [k, S] tiles from the word buffer (int64, holes filled),
-    starting at ptr = num_words (int or 0-d int64 tensor) with states
-    (hi, lo).  Returns (vals [k, S] int32, hi [S] int64, lo [S] int64)."""
+    """Decode [k, S] tiles from the word buffer [nbuf] (int64, holes
+    filled), starting at ptr = num_words (int or 0-d int64 tensor) with
+    states (hi, lo) [S]; or C containers in one launch: buf [C, nbuf],
+    num_words [C], hi, lo [C, S], tiles [C, k, S].  Returns (vals int32
+    shaped like m, hi and lo int64 shaped like the input states)."""
+    k, S = m.shape[-2:]
+    C = math.prod(m.shape[:-2])
     if not buf.is_cuda:
-        return decode_plain(buf, num_words, hi, lo, m, s, lower)
-    k, S = m.shape
+        if m.dim() == 2:
+            return decode_plain(buf, num_words, hi, lo, m, s, lower)
+        outs = [decode_plain(buf[c], num_words[c], hi[c], lo[c], m[c], s[c],
+                             lower[c]) for c in range(C)]
+        return tuple(torch.stack(x) for x in zip(*outs))
     dev = buf.device
-    nw = torch.as_tensor(num_words, dtype=torch.int64, device=dev).reshape(())
-    _check(buf, "buf", torch.int64, (buf.shape[0],), dev)
-    _check(hi, "hi", torch.int64, (S,), dev)
-    _check(lo, "lo", torch.int64, (S,), dev)
+    lead = tuple(m.shape[:-2])
+    nw = torch.as_tensor(num_words, dtype=torch.int64,
+                         device=dev).reshape(lead)
+    _check(nw, "num_words", torch.int64, lead, dev)
+    _check(buf, "buf", torch.int64, (*lead, buf.shape[-1]), dev)
+    _check(hi, "hi", torch.int64, (*lead, S), dev)
+    _check(lo, "lo", torch.int64, (*lead, S), dev)
     for t, name, dt in ((m, "mean", torch.float32),
                         (s, "scale", torch.float32),
                         (lower, "lower", torch.int32)):
-        _check(t, name, dt, (k, S), dev)
+        _check(t, name, dt, m.shape, dev)
     threads, per = decode_launch_shape(S)
-    lib = _load()
-    vals = torch.empty((k, S), dtype=torch.int32, device=dev)
-    hi_out = torch.empty(S, dtype=torch.int64, device=dev)
-    lo_out = torch.empty(S, dtype=torch.int64, device=dev)
-    err = lib.rans_decode_launch(
-        buf.data_ptr(), buf.shape[0], nw.data_ptr(), hi.data_ptr(),
+    vals = torch.empty(m.shape, dtype=torch.int32, device=dev)
+    hi_out = torch.empty_like(hi)
+    lo_out = torch.empty_like(lo)
+    err = _load().rans_decode_launch(
+        buf.data_ptr(), buf.shape[-1], nw.data_ptr(), hi.data_ptr(),
         lo.data_ptr(), m.data_ptr(), s.data_ptr(), lower.data_ptr(),
-        vals.data_ptr(), hi_out.data_ptr(), lo_out.data_ptr(), S, k,
+        vals.data_ptr(), hi_out.data_ptr(), lo_out.data_ptr(), C, S, k,
         threads, per, _stream(),
     )
     _raise_if(err, "rans_decode_kernel")
@@ -220,3 +275,20 @@ def cdf_eval(v: torch.Tensor, m: torch.Tensor, s: torch.Tensor,
     )
     _raise_if(err, "cdf_eval_kernel")
     return out
+
+
+DEPTH_PROBES = {"decode": 0, "encode": 1}
+
+
+def depth_probe(kind: str, steps: int, out: torch.Tensor) -> None:
+    """Run `steps` dependent steps of the decode or encode chain's
+    irreducible part on one warp (decode: one CDF evaluation and the 64-bit
+    multiply-add; encode: the renormalisation compare, the reciprocal
+    division and the multiply-add), writing the 32 final states to `out`
+    (int64 [32] on the card).  Timed by the caller; measurement only, so it
+    has no launch counter."""
+    _check(out, "out", torch.int64, (32,), out.device)
+    err = _load().depth_probe_launch(
+        DEPTH_PROBES[kind], steps, 0.1, 0.7, -998, 4099, out.data_ptr(),
+        _stream())
+    _raise_if(err, "depth_probe_kernel")

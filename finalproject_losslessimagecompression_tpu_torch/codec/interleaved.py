@@ -13,8 +13,13 @@ as two 32-bit limbs (hi, lo) in int64 tensors, because CPU PyTorch lacks
 most uint32 ops and a full state can exceed 2^63.  Word buffers, limbs and
 seeds are int64 tensors holding values in [0, 2^32).  The CUDA kernels that
 replace the two state loops on the card are in codec/cuda_rans.py; the
-wrappers there run `encode_plain` / `decode_plain` below only for
-tensors that lie on the CPU.
+wrappers there run `encode_plain` / `decode_plain` / `cdf_prepass_plain`
+below only for tensors that lie on the CPU.  `guided_search` and
+`recip_divmod` are plain models of the kernels' symbol search and 64-bit
+division, held by the tests against `_search` and exact integer division.
+
+`interleaved_encode_many` / `interleaved_decode_many` code several
+containers at once: those of one (S, k) go through one kernel launch.
 """
 
 from __future__ import annotations
@@ -137,6 +142,35 @@ def cdf_tiles(v, m, s, lower):
     return c_start, cdf_bits(v, m, s, lower) - c_start
 
 
+def cdf_prepass_plain(v, m, s, lower):
+    """Plain version of the prepass kernel: per symbol one 16-byte record,
+    as int64 [..., 2]: the float64 bits of 1 / freq, then
+    c_start | freq << 32."""
+    c_start, freq = cdf_tiles(v, m, s, lower)
+    recip = (1.0 / freq.to(torch.float64)).view(torch.int64)
+    return torch.stack([recip, c_start | (freq << 32)], dim=-1)
+
+
+def unpack_prepass(rec):
+    """(c_start int64, freq int64, recip float64) of prepass records."""
+    return (rec[..., 1] & M32, rec[..., 1] >> 32,
+            rec[..., 0].contiguous().view(torch.float64))
+
+
+def recip_divmod(x: int, f: int):
+    """(x // f, x % f) as the encode kernel computes them, for
+    x < f * 2^40 and 1 <= f < 2^24: the float64 product x * (1 / f)
+    (each operation correctly rounded) is off from x / f by less than one,
+    so its truncation is corrected by one integer step."""
+    q = int(float(x) * (1.0 / f))
+    r = x - q * f
+    if r < 0:
+        q, r = q - 1, r + f
+    elif r >= f:
+        q, r = q + 1, r - f
+    return q, r
+
+
 def encode_state_loop(c_start: torch.Tensor, freq: torch.Tensor,
                       seeds: Optional[torch.Tensor] = None):
     """Advance S streams over k steps of precomputed [k, S] int64
@@ -171,67 +205,97 @@ def encode_state_loop(c_start: torch.Tensor, freq: torch.Tensor,
 
 
 def encode_plain(v, m, s, lower, seeds=None):
-    """Plain version of the encode kernel: [k, S] window-clamped bins,
-    means, scales and window lower bounds -> (words [k, S] int64,
-    flags [k, S] int32, hi [S] int64, lo [S] int64)."""
+    """Plain version of the encode kernels (prepass and state chain):
+    [k, S] window-clamped bins, means, scales and window lower bounds ->
+    (words [k, S] int64, flags [k, S] int32, hi [S] int64, lo [S] int64)."""
     c_start, freq = cdf_tiles(v, m, s, lower)
     words, flags, hi, lo = encode_state_loop(c_start, freq, seeds)
     return words, flags.to(torch.int32), hi, lo
 
 
-def _encode_core(values, means, scales, num_streams: int, steps: int,
-                 seeds=None):
-    """Layout, window clamp, the state loop (kernel or plain, by device)
-    and compaction of the emitted words in (t, s) order.  values, means,
-    scales arrive flat [n] on one device; n <= steps * num_streams."""
-    from .cuda_rans import rans_encode
-
-    S, k = num_streams, steps
+def _prepare_encode(values, means, scales, S: int, k: int):
+    """Layout [n] -> [k, S] and the out-of-window escape: the bins clamped
+    into the codable window (the true values of clamped symbols travel in
+    the container side channel).  Returns (v_clamped, m, s, lower,
+    oow_count, oow, v_orig)."""
     n = values.numel()
     v = _layout(values.to(torch.int32), n, S, k, PAD_VALUE)
     m = _layout(means.to(torch.float32), n, S, k, PAD_MEAN)
     s = _layout(scales.to(torch.float32), n, S, k, PAD_SCALE)
-    # out-of-window escape: clamp into the codable window; the true values
-    # of clamped symbols travel in the container side channel
     lower = lower_bin(m)
     v_clamped = torch.minimum(torch.maximum(v, lower), lower + (NBINS - 1))
     oow = (v_clamped != v).reshape(-1)
-    oow_count = oow.sum()
-
-    words, flags, hi, lo = rans_encode(v_clamped, m, s, lower, seeds)
-    buf, total = compact(words, flags)
-    return buf, total, hi, lo, oow_count, oow, v.reshape(-1)
+    return v_clamped, m, s, lower, oow.sum(), oow, v.reshape(-1)
 
 
 def compact(words: torch.Tensor, flags: torch.Tensor):
-    """The emitted words of [k, S] tiles as one buffer in (t, s) order:
-    (buf [k*S] int64, zero past the end; total, a 0-d tensor).  Emitted
-    word (t, s) goes to the number of emissions before it; the rest go to a
-    dump slot past the end."""
-    cap = words.numel()
-    flags = flags.reshape(-1).to(torch.int64)
-    pos = torch.cumsum(flags, 0) - 1
-    pos = torch.where(flags != 0, pos, torch.full_like(pos, cap))
-    buf = torch.zeros(cap + 1, dtype=torch.int64, device=words.device)
-    buf.scatter_(0, pos, words.reshape(-1))
-    return buf[:cap], flags.sum()
+    """The emitted words of [..., k, S] tiles as one contiguous buffer per
+    container in (t, s) order: (buf [..., k*S] int64, zero past the end;
+    total [...]).  Emitted word (t, s) of container c goes to c * k*S plus
+    the number of emissions before it in c; the rest go to a dump slot past
+    the last container."""
+    lead = words.shape[:-2]
+    cap = words.shape[-2] * words.shape[-1]
+    flags = flags.reshape(-1, cap).to(torch.int64)
+    C = flags.shape[0]
+    pos = torch.cumsum(flags, 1) - 1 + cap * torch.arange(
+        C, device=words.device)[:, None]
+    pos = torch.where(flags != 0, pos, torch.full_like(pos, C * cap))
+    buf = torch.zeros(C * cap + 1, dtype=torch.int64, device=words.device)
+    buf.scatter_(0, pos.reshape(-1), words.reshape(-1))
+    return buf[:-1].reshape(*lead, cap), flags.sum(1).reshape(lead)
+
+
+def _groups(keys):
+    """Indices grouped by key, in first-seen order."""
+    out = {}
+    for i, key in enumerate(keys):
+        out.setdefault(key, []).append(i)
+    return out.values()
+
+
+def interleaved_encode_many(items, seeds=None, num_streams: int = 8192,
+                            sym_per_stream: int = 64):
+    """Encode several messages, one container each: items are (values,
+    means, scales) flat [n] on one device, seeds a list of per-message
+    seeds (or None).  Messages of the same (S, k) are encoded by one
+    launch of each encode kernel.  Returns a list of EncodedStreams, equal
+    to encoding each message alone."""
+    from .cuda_rans import rans_encode
+
+    seeds = seeds or [None] * len(items)
+    plans, prepared = [], []
+    for values, means, scales in items:
+        n = values.numel()
+        S = pick_num_streams(n, num_streams, sym_per_stream)
+        plans.append((n, S, _plan_steps(n, S)))
+        prepared.append(_prepare_encode(values, means, scales, S,
+                                        plans[-1][2]))
+    out = [None] * len(items)
+    keys = [(S, k, sd is None) for (_, S, k), sd in zip(plans, seeds)]
+    for idx in _groups(keys):
+        stack = [torch.stack([prepared[i][j] for i in idx]) for j in range(4)]
+        sd = None if seeds[idx[0]] is None else torch.stack(
+            [seeds[i].to(torch.int64).reshape(-1) for i in idx])
+        words, flags, hi, lo = rans_encode(*stack, sd)
+        buf, total = compact(words, flags)
+        for c, i in enumerate(idx):
+            n, S, _ = plans[i]
+            _, _, _, _, oow_count, oow, v_orig = prepared[i]
+            out[i] = EncodedStreams(
+                words=buf[c], num_words=total[c], state_hi=hi[c],
+                state_lo=lo[c], n=n, num_streams=S, oow_count=oow_count,
+                oow_mask=oow, orig_values=v_orig,
+            )
+    return out
 
 
 def interleaved_encode(values, means, scales, num_streams: int = 8192,
                        seeds=None, sym_per_stream: int = 64) -> EncodedStreams:
     """Encode integer-bin symbols (v = round(x*256)) with S parallel streams.
     values: int [n]; means, scales: float32 [n], all on one device."""
-    n = values.numel()
-    S = pick_num_streams(n, num_streams, sym_per_stream)
-    k = _plan_steps(n, S)
-    buf, total, hi, lo, oow_count, oow, v_orig = _encode_core(
-        values, means, scales, S, k, seeds
-    )
-    return EncodedStreams(
-        words=buf, num_words=total, state_hi=hi, state_lo=lo, n=n,
-        num_streams=S, oow_count=oow_count, oow_mask=oow,
-        orig_values=v_orig,
-    )
+    return interleaved_encode_many([(values, means, scales)], [seeds],
+                                   num_streams, sym_per_stream)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -254,6 +318,88 @@ def _search(mod, m, s, lower):
         c_a = torch.where(le, cd, c_a)
     v = a + 1
     return v, c_a, cdf_bits(v, m, s, lower)
+
+
+_PMAX = float((1 << 24) - NBINS)
+
+
+def guess_bin(mod, m, s, lower):
+    """The decode kernel's hint for the smallest v with CDF(v) > mod:
+    256 * (mean + scale * logit(p)) - 1/2 with
+    p = (mod + 1/2 - (v - lower + 1)) / (2^24 - 2048), the linear term
+    taken at the window's centre and then at the first guess, clamped to
+    the window and to [lower + mod - (2^24 - 2048), lower + mod], where the
+    answer must lie because the sigmoid term of CDF is in [0, 2^24 - 2048].
+    float32 throughout (the kernel takes logf fast: the guess is only a
+    hint, so the two need not agree)."""
+    u = mod.to(torch.float32) + 0.5
+    centre = 256.0 * m - lower.to(torch.float32)
+    lin = torch.full_like(u, 1025.0)
+    for _ in range(2):
+        p = ((u - lin) * (1.0 / _PMAX)).clamp(2.0 ** -40, 1.0 - 2.0 ** -24)
+        d = centre + 256.0 * s * (torch.log(p) - torch.log(1.0 - p)) - 0.5
+        d = torch.nan_to_num(d, nan=-1.0).clamp(-1.0, float(NBINS - 1))
+        lin = torch.floor(d) + 2.0
+    off = torch.floor(d).to(torch.int64) + 1
+    off = torch.maximum(torch.minimum(off, mod.clamp(max=NBINS - 1)),
+                        (mod - int(_PMAX)).clamp(min=0))
+    return lower + off.to(torch.int32)
+
+
+def bracket_search(mod, m, s, lower, g):
+    """The decode kernel's search from a guess g in [lower, lower + 2047]:
+    CDF(g - 1) and CDF(g) verify the bracket.  On a miss, CDF's rise of at
+    least one per bin bounds the answer within mod - CDF(g) + 1 bins above
+    g (or CDF(g - 1) - mod below g - 1); one round evaluates the next bin
+    past the bracket and the pair at that bound, then bisection closes the
+    rest.  lo keeps "lo == lower - 1 or CDF(lo) <= mod", hi keeps
+    "hi == lower + 2047 or CDF(hi) > mod".  Returns (v, CDF(v - 1), CDF(v)),
+    equal to `_search` for every mod and every guess."""
+    top, bot = lower + (NBINS - 1), lower - 1
+    cdf = lambda v: cdf_bits(v, m, s, lower)  # noqa: E731
+    ca, cb = cdf(g - 1), cdf(g)
+    up = (g != top) & (cb <= mod)  # the answer lies above g
+    down = ~up & (g != lower) & (ca > mod)  # ... below g
+    # the round after a miss: the next bin, the bound, and the bin inside it
+    near = torch.where(up, g + 1, g - 2)
+    far = torch.where(
+        up, g + torch.minimum((top - g).to(torch.int64), mod - cb + 1),
+        g - 1 - torch.minimum((g - 1 - bot).to(torch.int64), ca - mod),
+    ).to(torch.int32)
+    inner = torch.where(up, far - 1, far + 1)
+    cn, cf, ci = cdf(near), cdf(far), cdf(inner)
+    closed_up = up & ((near == top) | (cn > mod))
+    closed_down = down & ((near == bot) | (cn <= mod))
+    open_up, open_down = up & ~closed_up, down & ~closed_down
+    # hit, or a miss closed by the next bin
+    lo = torch.where(up, g, torch.where(closed_down, g - 2, g - 1))
+    clo = torch.where(up, cb, torch.where(closed_down, cn, ca))
+    hi = torch.where(up, g + 1, torch.where(down, g - 1, g))
+    chi = torch.where(up, cn, torch.where(down, ca, cb))
+    # still open: the next bin joins the known side, the bound the other
+    lo = torch.where(open_up, near, torch.where(open_down, far, lo))
+    clo = torch.where(open_up, cn, torch.where(open_down, cf, clo))
+    hi = torch.where(open_up, far, torch.where(open_down, near, hi))
+    chi = torch.where(open_up, cf, torch.where(open_down, cn, chi))
+    inside = (open_up | open_down) & (inner > lo) & (inner < hi)
+    to_hi, to_lo = inside & (ci > mod), inside & (ci <= mod)
+    hi, chi = torch.where(to_hi, inner, hi), torch.where(to_hi, ci, chi)
+    lo, clo = torch.where(to_lo, inner, lo), torch.where(to_lo, ci, clo)
+    while bool((hi - lo > 1).any()):
+        act = hi - lo > 1
+        p = lo + torch.div(hi - lo, 2, rounding_mode="floor")
+        cp = cdf(p)
+        to_hi = act & (cp > mod)
+        to_lo = act & ~(cp > mod)
+        hi, chi = torch.where(to_hi, p, hi), torch.where(to_hi, cp, chi)
+        lo, clo = torch.where(to_lo, p, lo), torch.where(to_lo, cp, clo)
+    return hi, clo, chi
+
+
+def guided_search(mod, m, s, lower):
+    """Plain model of the decode kernel's symbol search: `bracket_search`
+    from `guess_bin`."""
+    return bracket_search(mod, m, s, lower, guess_bin(mod, m, s, lower))
 
 
 def decode_step(hi, lo, ptr, buf, m, s, lower):
@@ -302,36 +448,47 @@ def decode_plain(buf, num_words, hi, lo, m, s, lower):
     return vals, hi, lo
 
 
-def _decode_core(buf, num_words, hi, lo, means, scales, num_streams: int,
-                 steps: int, fill=None, donated=0):
-    """Layout, bits-back hole fill, and the decode loop (kernel or plain, by
-    device).  Returns (values [n] int32, hi, lo)."""
+def interleaved_decode_many(encs, means, scales, fills=None):
+    """Decode several containers given the means/scales used at encode time
+    (flat [n] each, encode order, on the coding device).  fills: per
+    container, the final lo limbs that restore its bits-back hole (or
+    None).  Containers of the same (S, k) are decoded by one kernel launch.
+    Returns a list of (values int32 [n], hi, lo); a successful decode
+    returns every stream to 2^32 | seed."""
     from .cuda_rans import rans_decode
 
-    S, k = num_streams, steps
-    n = means.numel()
-    m = _layout(means.to(torch.float32), n, S, k, PAD_MEAN)
-    s = _layout(scales.to(torch.float32), n, S, k, PAD_SCALE)
-    if fill is not None:
-        # bits-back hole restore: the container omitted its first `donated`
-        # words; they are the final lo limbs of the streams they seeded
-        take = min(int(fill.shape[0]), int(buf.shape[0]), int(donated))
-        buf = buf.clone()
-        buf[:take] = fill[:take]
-    vals, hi, lo = rans_decode(buf, num_words, hi, lo, m, s, lower_bin(m))
-    return vals.reshape(-1)[:n], hi, lo
+    fills = fills or [None] * len(encs)
+    dev = means[0].device
+    keys = [(e.num_streams, _plan_steps(e.n, e.num_streams)) for e in encs]
+    out = [None] * len(encs)
+    for idx in _groups(keys):
+        S, k = keys[idx[0]]
+        col = lambda f: torch.stack([  # noqa: E731
+            torch.as_tensor(f(encs[i]), dtype=torch.int64, device=dev)
+            for i in idx])
+        buf = col(lambda e: e.words)
+        for c, i in enumerate(idx):
+            if fills[i] is not None:
+                # bits-back hole restore: the container omitted its first
+                # `donated` words; they are the final lo limbs of the
+                # streams they seeded
+                take = min(int(fills[i].shape[0]), int(buf.shape[1]),
+                           int(encs[i].donated))
+                buf[c, :take] = fills[i][:take]
+        m = torch.stack([_layout(means[i].to(torch.float32), encs[i].n, S,
+                                 k, PAD_MEAN) for i in idx])
+        s = torch.stack([_layout(scales[i].to(torch.float32), encs[i].n, S,
+                                 k, PAD_SCALE) for i in idx])
+        vals, hi, lo = rans_decode(
+            buf, col(lambda e: e.num_words).reshape(-1), col(
+                lambda e: e.state_hi), col(lambda e: e.state_lo), m, s,
+            lower_bin(m))
+        for c, i in enumerate(idx):
+            out[i] = (vals[c].reshape(-1)[:encs[i].n], hi[c], lo[c])
+    return out
 
 
 def interleaved_decode(enc: EncodedStreams, means, scales, fill=None):
-    """Decode all symbols given the means/scales used at encode time (flat
-    [n], encode order, on the coding device).  Returns (values int32 [n],
-    hi, lo); a successful decode returns every stream to 2^32 | seed."""
-    dev = means.device
-    S, n = enc.num_streams, enc.n
-    return _decode_core(
-        torch.as_tensor(enc.words, dtype=torch.int64, device=dev),
-        torch.as_tensor(enc.num_words, dtype=torch.int64, device=dev),
-        torch.as_tensor(enc.state_hi, dtype=torch.int64, device=dev),
-        torch.as_tensor(enc.state_lo, dtype=torch.int64, device=dev),
-        means, scales, S, _plan_steps(n, S), fill, enc.donated,
-    )
+    """Decode one container (see `interleaved_decode_many`).  Returns
+    (values int32 [n], hi, lo)."""
+    return interleaved_decode_many([enc], [means], [scales], [fill])[0]

@@ -22,6 +22,12 @@ packs all containers with one device-to-host copy; `decompress_many` queues
 every decode (the containers go up through pinned, non-blocking copies) and
 checks every state invariant, plus the decoded images with fetch=True, in
 one device-to-host copy.
+
+Launches.  Both walk the queue level-major: at each level every batch's
+flow and prior run, then one rANS launch codes that level's containers of
+all batches (one per stream layout, should batch sizes differ), so a queue
+of any length launches each coding kernel once per level.  The containers
+are byte-identical to per-batch coding: the batches' streams never mix.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..codec.coder import decode_streams_deferred, encode_tensor_deferred
+from ..codec.coder import decode_streams_deferred_many, encode_tensors_deferred
 from ..codec.container import pack_streams_many, unpack_streams
 from ..codec.interleaved import make_seeds, pick_num_streams
 from ..ops.reshape import depth_to_space, space_to_depth
@@ -86,9 +92,10 @@ class FlowCodec:
     # ------------------------------------------------------------------
 
     @torch.no_grad()
-    def _compress_deferred(self, x):
-        """Queue the whole encode of one batch without a host sync; returns
-        (per-level EncodedStreams, info).
+    def _compress_deferred_many(self, xs):
+        """Queue the whole encode of a queue of batches without a host
+        sync, level-major; returns [(per-level EncodedStreams, info)] per
+        batch.
 
         Bits-back chain: level l + 1's streams are seeded from level l's
         word buffer, and level l's container omits those donated words.
@@ -96,42 +103,48 @@ class FlowCodec:
         buffer it has decoded level l + 1 and holds the donated words as
         that decode's final lo limbs."""
         cfg, model = self.cfg, self.model
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
-        batch = int(x.shape[0])
-        fold = 1 if cfg.batch_squeeze else batch
+        xs = [torch.as_tensor(x, dtype=torch.float32, device=self.device)
+              for x in xs]
+        infos = [{"batch": int(x.shape[0])} for x in xs]
+        folds = [1 if cfg.batch_squeeze else info["batch"] for info in infos]
         if cfg.batch_squeeze:
-            x = fold_batch(x, cfg.batch_squeeze)
-        encs: List = []
-        seeds = None
+            xs = [fold_batch(x, cfg.batch_squeeze) for x in xs]
+        encs: List[List] = [[] for _ in xs]
+        seeds = [None] * len(xs)
         for level, p in enumerate(self.plans):
             last = level == cfg.nsplit - 1
-            x = model.flow_level(space_to_depth(x, cfg.extend_scale), level)
-            z, keep = (x, None) if last else (x[..., : p.z_ch],
-                                              x[..., p.z_ch:])
-            mean, logscale = model.prior_params(z if last else keep, level)
-            enc = encode_tensor_deferred(
-                z, mean, logscale, self.num_streams, seeds,
+            items = []
+            for b, x in enumerate(xs):
+                x = model.flow_level(space_to_depth(x, cfg.extend_scale),
+                                     level)
+                z, keep = (x, None) if last else (x[..., : p.z_ch],
+                                                  x[..., p.z_ch:])
+                mean, logscale = model.prior_params(z if last else keep,
+                                                    level)
+                items.append((z, mean, logscale))
+                xs[b] = keep
+            level_encs = encode_tensors_deferred(
+                items, self.num_streams, seeds,
                 sym_per_stream=self._level_sps(level),
             )
-            encs.append(enc)
-            if not last:
-                S_next = self._level_S(level + 1, fold)
-                seeds = make_seeds(enc.words, enc.num_words, S_next)
-                # clamped to the word count at pack time
-                enc.donated = S_next
-            x = keep
-        return encs, {"batch": batch}
+            for b, enc in enumerate(level_encs):
+                encs[b].append(enc)
+                if not last:
+                    S_next = self._level_S(level + 1, folds[b])
+                    seeds[b] = make_seeds(enc.words, enc.num_words, S_next)
+                    # clamped to the word count at pack time
+                    enc.donated = S_next
+        return list(zip(encs, infos))
 
     def compress(self, x) -> Tuple[List[bytes], dict]:
         """Encode an image batch (NHWC, values on the 1/256 grid) to
         per-level containers.  Returns (blobs, info)."""
-        encs, info = self._compress_deferred(x)
-        return pack_streams_many(encs), info
+        return self.compress_many([x])[0]
 
     def compress_many(self, xs):
         """Serving encode: queue every batch, then pack every container with
         one host sync.  Returns a list of (blobs, info)."""
-        per_batch = [self._compress_deferred(x) for x in xs]
+        per_batch = self._compress_deferred_many(xs)
         blobs = pack_streams_many([e for encs, _ in per_batch for e in encs])
         out, pos = [], 0
         for encs, info in per_batch:
@@ -162,38 +175,48 @@ class FlowCodec:
         return [e.to(self.device) for e in encs]
 
     @torch.no_grad()
-    def _decompress_deferred(self, blobs: Sequence[bytes], info: dict):
-        """Queue the whole decode of one batch; returns (x, oks) with oks
-        the per-level state-invariant flags, still on the device."""
+    def _decompress_deferred_many(self, packed):
+        """Queue the whole decode of [(blobs, info), ...], level-major;
+        returns (xs, oks) with oks the per-level state-invariant flags,
+        still on the device."""
         cfg, model = self.cfg, self.model
-        batch = info["batch"]
-        fold = 1 if cfg.batch_squeeze else batch
-        encs = self._unpack_checked(blobs, fold)
-        x = None
-        prev_lo = None
+        batches = [info["batch"] for _, info in packed]
+        folds = [1 if cfg.batch_squeeze else b for b in batches]
+        encs = [self._unpack_checked(blobs, fold)
+                for (blobs, _), fold in zip(packed, folds)]
+        xs = [None] * len(packed)
+        prev_lo = [None] * len(packed)
         oks = []
         for level in range(cfg.nsplit - 1, -1, -1):
             p = self.plans[level]
             last = level == cfg.nsplit - 1
-            ref = (torch.zeros((fold, p.h, p.w, p.z_ch), device=self.device)
-                   if last else x)
-            mean, logscale = model.prior_params(ref, level)
-            # this container's donated hole is restored from the previous
+            params = [
+                model.prior_params(
+                    torch.zeros((fold, p.h, p.w, p.z_ch), device=self.device)
+                    if last else x, level)
+                for fold, x in zip(folds, xs)
+            ]
+            # each container's donated hole is restored from the previous
             # level's final lo limbs; the check skips this level's own
             # seeded prefix (its donor's donated count), and level 0's full
             # check closes the chain
-            tail = 0 if level == 0 else encs[level - 1].donated
-            z, ok, prev_lo = decode_streams_deferred(
-                encs[level], mean, logscale,
-                fill=None if last else prev_lo, tail_start=tail,
+            decoded = decode_streams_deferred_many(
+                [e[level] for e in encs], [m for m, _ in params],
+                [ls for _, ls in params],
+                fills=None if last else prev_lo,
+                tail_starts=[0 if level == 0 else e[level - 1].donated
+                             for e in encs],
             )
-            oks.append(ok)
-            x = z if last else torch.cat([z, x], dim=-1)
-            x = depth_to_space(model.flow_level_inverse(x, level),
-                               cfg.extend_scale)
+            for b, (z, ok, lo) in enumerate(decoded):
+                oks.append(ok)
+                prev_lo[b] = lo
+                x = z if last else torch.cat([z, xs[b]], dim=-1)
+                xs[b] = depth_to_space(model.flow_level_inverse(x, level),
+                                       cfg.extend_scale)
         if cfg.batch_squeeze:
-            x = unfold_batch(x, cfg.C)[:batch]
-        return x, oks
+            xs = [unfold_batch(x, cfg.C)[:batch]
+                  for x, batch in zip(xs, batches)]
+        return xs, oks
 
     @staticmethod
     def _check_got(got) -> None:
@@ -222,13 +245,10 @@ class FlowCodec:
 
     def decompress_many(self, packed, fetch: bool = False):
         """Serving decode of [(blobs, info), ...]: queue every batch's
-        decode, then verify all state invariants with one host sync
-        (fetch=True also returns the batches, as numpy, in that sync)."""
-        xs, oks = [], []
-        for blobs, info in packed:
-            x, ok = self._decompress_deferred(blobs, info)
-            xs.append(x)
-            oks.extend(ok)
+        decode, level-major, then verify all state invariants with one host
+        sync (fetch=True also returns the batches, as numpy, in that
+        sync)."""
+        xs, oks = self._decompress_deferred_many(packed)
         if fetch:
             return self._fetch(xs, oks)
         self._check_got([bool(torch.stack(oks).all())])

@@ -16,6 +16,8 @@ import sys
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import jax
 import jax.numpy as jnp
@@ -43,6 +45,7 @@ from finalproject_losslessimagecompression_tpu_torch.codec.cuda_rans import (
     MAX_DECODE_STREAMS,
     check_streams,
     decode_launch_shape,
+    rans_cdf_prepass,
     rans_decode,
     rans_encode,
 )
@@ -94,8 +97,8 @@ def _agreeing_symbols(rng, n):
 
 
 def test_port_imports_no_jax():
-    """Every port module and chip_smoke import without jax, flax or the JAX
-    package (checked in a fresh interpreter)."""
+    """Every port module and the root chip scripts import without jax, flax
+    or the JAX package (checked in a fresh interpreter)."""
     mods = [
         f"{PORT}.{m}" for m in (
             "codec", "codec.cdf", "codec.interleaved", "codec.native",
@@ -104,7 +107,7 @@ def test_port_imports_no_jax():
             "models.layers", "models.invertible", "models.idflow",
             "models.exact", "convert",
         )
-    ] + [PORT, "chip_smoke"]
+    ] + [PORT, "chip_smoke", "chip_decode_variants"]
     code = (
         "import sys\n"
         + "".join(f"import {m}\n" for m in mods)
@@ -240,8 +243,10 @@ def test_decode_wrapper_matches_pallas_decode(windowed):
     vv, m, s, lower, seeds = _kernel_tiles(31)
     k, S = vv.shape
     seeds_t = _t(seeds.astype(np.int64))
-    buf, total, hi, lo, *_ = IL._encode_core(
-        vv.reshape(-1), m.reshape(-1), s.reshape(-1), S, k, seeds_t)
+    enc = IL.interleaved_encode(vv.reshape(-1), m.reshape(-1), s.reshape(-1),
+                                num_streams=S, seeds=seeds_t,
+                                sym_per_stream=k)
+    buf, total, hi, lo = enc.words, enc.num_words, enc.state_hi, enc.state_lo
     before = rans_decode.launches
     tv, thi, tlo = rans_decode(buf, total, hi, lo, m, s, lower)
     assert rans_decode.launches == before
@@ -430,3 +435,123 @@ def test_kernel_stream_range():
     for S in (0, MAX_DECODE_STREAMS + 1):
         with pytest.raises(ValueError):
             check_streams(S)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' redesigned arithmetic, modelled in plain PyTorch / Python
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("logscale", [-6.24, -2.0, 1.0],
+                         ids=["tiny", "mid", "wide"])
+def test_guided_search_equals_bitwise_search(logscale):
+    """The decode kernel's search (inverse-CDF guess, verified bracket,
+    gallop and bisection; `IL.guided_search`) returns what the 13-step
+    bitwise search `IL._search` returns -- the symbol, CDF(v - 1) and CDF(v)
+    -- for mods every 61 counts over [0, 2^24), both ends, and the values
+    around CDF(lower - 1) and CDF(lower + 2047) (outside that range only a
+    corrupt stream reaches), at means -1, 0.3 and +1; and so does the
+    bracket search from random guesses, which exercises every gallop path.
+    Tolerance: exact."""
+    rng = np.random.default_rng(71)
+    means = torch.tensor([-1.0, 0.3, 1.0], dtype=torch.float32)
+    scale = torch.exp(torch.tensor(logscale, dtype=torch.float32))
+    low = lower_bin(means)
+    edges = torch.cat([cdf_bits(low - 1, means, scale, low),
+                       cdf_bits(low + NBINS - 1, means, scale, low)])
+    mods = torch.cat([torch.arange(0, 1 << 24, 61), torch.tensor(
+        [0, 1, (1 << 24) - 1]), (edges[:, None] + torch.arange(-2, 3))
+        .reshape(-1).clamp(0, (1 << 24) - 1)])
+    mod = mods.repeat(3)
+    m = means.repeat_interleave(mods.numel())
+    s = torch.full_like(m, float(scale))
+    lower = low.repeat_interleave(mods.numel())
+    want = IL._search(mod, m, s, lower)
+    got = IL.guided_search(mod, m, s, lower)
+    for a, b in zip(want, got):
+        assert torch.equal(a.to(torch.int64), b.to(torch.int64))
+    guess = lower + torch.from_numpy(
+        rng.integers(0, NBINS, mod.numel()).astype(np.int32))
+    got = IL.bracket_search(mod, m, s, lower, guess)
+    for a, b in zip(want, got):
+        assert torch.equal(a.to(torch.int64), b.to(torch.int64))
+    # the guess is the common case: it hits for nearly every in-range mod
+    hit = IL.guess_bin(mod, m, s, lower) == want[0]
+    assert float(hit.float().mean()) > 0.99
+
+
+def test_recip_divmod_exact_at_edges():
+    """The encode kernel's division (float64 reciprocal estimate, one
+    integer correction; `IL.recip_divmod`) equals Python's exact divmod at
+    the edges of its range x < f * 2^40, 1 <= f < 2^24.  Tolerance:
+    exact."""
+    fs = [1, 2, 3, 255, 4099, (1 << 23) - 1, 1 << 23, (1 << 24) - 2,
+          (1 << 24) - 1]
+    for f in fs:
+        top = f * (1 << 40)
+        for x in {0, 1, f - 1, f, 1 << 32, (1 << 32) - 1, (1 << 32) + 1,
+                  top - 1, top - f, top - f - 1, (1 << 63) % top,
+                  ((1 << 64) - 1) % top}:
+            assert IL.recip_divmod(x, f) == divmod(x, f), (x, f)
+
+
+@settings(max_examples=2000, deadline=None)
+@given(f=st.integers(1, (1 << 24) - 1), frac=st.floats(0.0, 1.0))
+def test_recip_divmod_exact_property(f, frac):
+    """recip_divmod(x, f) == divmod(x, f) for x drawn over [0, f * 2^40)
+    (log-uniform in x, so small and large states both appear).  Tolerance:
+    exact."""
+    x = min(int((f * float(1 << 40)) ** frac), f * (1 << 40) - 1)
+    assert IL.recip_divmod(x, f) == divmod(x, f)
+
+
+def _grouped_tiles(C=3, S=32, k=16, seed=81):
+    rng = np.random.default_rng(seed)
+    m = torch.from_numpy(rng.uniform(-1, 1, (C, k, S)).astype(np.float32))
+    s = torch.from_numpy(np.exp(rng.uniform(-6.24, 1.0, (C, k, S)))
+                         .astype(np.float32))
+    lower = lower_bin(m)
+    v = torch.from_numpy(np.round((m.numpy() + s.numpy() * rng.logistic(
+        0, 1, (C, k, S))) * 256).astype(np.int32))
+    v = torch.minimum(torch.maximum(v, lower), lower + NBINS - 1)
+    seeds = torch.from_numpy(rng.integers(0, 2**32, (C, S)).astype(np.int64))
+    return v, m, s, lower, seeds
+
+
+@pytest.mark.parametrize("kernel", ["prepass", "encode", "decode"])
+def test_grouped_wrappers_equal_separate_calls(kernel):
+    """A wrapper given C = 3 containers of [C, k, S] tiles (the form one
+    launch takes on the card) returns on the CPU what C separate [k, S]
+    calls return; the prepass records hold (c_start, freq) of `cdf_tiles`
+    and the correctly rounded 1 / freq.  Tolerance: exact."""
+    v, m, s, lower, seeds = _grouped_tiles()
+    C = v.shape[0]
+    if kernel == "prepass":
+        rec = rans_cdf_prepass(v, m, s, lower)
+        for c in range(C):
+            assert torch.equal(rec[c], rans_cdf_prepass(v[c], m[c], s[c],
+                                                        lower[c]))
+        c_start, freq, recip = IL.unpack_prepass(rec)
+        want = IL.cdf_tiles(v, m, s, lower)
+        assert torch.equal(c_start, want[0]) and torch.equal(freq, want[1])
+        assert torch.equal(recip, 1.0 / freq.to(torch.float64))
+        return
+    grouped = rans_encode(v, m, s, lower, seeds)
+    single = [rans_encode(v[c], m[c], s[c], lower[c], seeds[c])
+              for c in range(C)]
+    for got, want in zip(grouped, zip(*single)):
+        assert torch.equal(got, torch.stack(want))
+    if kernel == "encode":
+        return
+    words, flags, hi, lo = grouped
+    buf, total = IL.compact(words, flags)
+    for c in range(C):
+        b1, t1 = IL.compact(words[c], flags[c])
+        assert torch.equal(buf[c], b1) and torch.equal(total[c], t1)
+    got = rans_decode(buf, total, hi, lo, m, s, lower)
+    for c in range(C):
+        want = rans_decode(buf[c], total[c], hi[c], lo[c], m[c], s[c],
+                           lower[c])
+        for a, b in zip(got, want):
+            assert torch.equal(a[c], b)
+    assert torch.equal(got[0], v) and torch.equal(got[2], seeds)

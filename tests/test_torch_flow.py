@@ -235,6 +235,30 @@ def test_codec_queue_one_sync_paths(pair):
     assert all(np.array_equal(_np(g), x) for g, x in zip(got, xs))
 
 
+def test_codec_queue_level_major_byte_identical(pair):
+    """A queue of three batches, the last one shorter: compress_many codes
+    each level of all batches in one launch per stream layout, and its
+    containers equal per-batch compress byte for byte; decompress_many
+    walks the levels the same way and returns every batch exactly.
+    Tolerance: exact."""
+    from finalproject_losslessimagecompression_tpu_torch.codec import (
+        cuda_rans,
+    )
+
+    _, _, tm = pair
+    xs = [_images(20), _images(21), _images(22, batch=1)]
+    codec = TM.FlowCodec(tm)
+    packed = codec.compress_many([torch.from_numpy(x) for x in xs])
+    assert [blobs for blobs, _ in packed] == [
+        codec.compress(torch.from_numpy(x))[0] for x in xs]
+    assert [info["batch"] for _, info in packed] == [BATCH, BATCH, 1]
+    got = codec.decompress_many(packed, fetch=True)
+    assert all(np.array_equal(g, x) for g, x in zip(got, xs))
+    # CPU tensors take the plain path: no kernel was launched
+    assert cuda_rans.rans_encode.launches == 0
+    assert cuda_rans.rans_decode.launches == 0
+
+
 def test_codec_rejects_bad_containers(pair):
     """Containers that do not match the level plans, or a corrupted one,
     raise ValueError.  Tolerance: exact."""
