@@ -31,7 +31,20 @@ Phases, each printing one JSON line:
             counts taken over exactly that run (one launch of each coding
             kernel per level); then a torch.profiler pass over one more
             queue (device time by kernel, idle share).
-5. large    an 8M-symbol message (S=8192, k=1024): the kernels against their
+5. train    the training path at full width: the port's cli.train
+            (`load_config`, its own YAML reader, then `build_trainer`) on
+            configs/imagenet64.yaml's model (the flagship IDFlow, batch 16,
+            steps_per_dispatch 4, Adamax 1e-3 with WarmUp 10 / 0.99), its
+            two dataloaders overridden to NaturalSynthetic 64x64x3 (no
+            ImageNet64 in the repository), 8 steps, eval with real rANS
+            coding of one batch at step 8, checkpoint and resume.  Step
+            time, images/s, FLOPs per step (FlopCounterMode), MFU against
+            the H100's float32 peak, peak memory, bpd on one fixed batch
+            before and after, the eval's coded bpd and errors, the rANS
+            launches of that eval, and whether a trainer resumed from the
+            checkpoint holds the same params, optimizer state and step.
+            Then `train_profile`: torch.profiler over one more K-step block.
+6. large    an 8M-symbol message (S=8192, k=1024): the kernels against their
             plain versions as in phase 3, then the whole encode and decode
             timed, bit-exact.
 
@@ -44,6 +57,8 @@ result.  `--quick` runs phases 1-3 only.
 import json
 import math
 import os
+import shutil
+import statistics
 import subprocess
 import sys
 import threading
@@ -59,6 +74,17 @@ SOURCE = "finalproject_losslessimagecompression_tpu_torch/csrc/rans_kernels.cu"
 ENC = ["rans_cdf_prepass_kernel", "rans_encode_kernel"]
 DEC = ["rans_decode_kernel"]
 TPU_KERNELS = "finalproject_losslessimagecompression_tpu/codec/pallas_rans.py"
+
+
+def kernel_wrappers():
+    """The kernel wrappers by kernel name, each with its launch count."""
+    from finalproject_losslessimagecompression_tpu_torch.codec import (
+        cuda_rans,
+    )
+
+    return {"rans_cdf_prepass_kernel": cuda_rans.rans_cdf_prepass,
+            "rans_encode_kernel": cuda_rans.rans_encode,
+            "rans_decode_kernel": cuda_rans.rans_decode}
 
 
 def emit(obj):
@@ -97,15 +123,20 @@ def device_ms(fn, reps: int, names) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    # a trace that recorded no launch of a kernel is taken again (the
+    # profiler can drop every record of a short kernel in a session)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        per_name = [[e for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and name in e.key and e.count > 0] for name in names]
+        if all(per_name):
+            break
     total = 0.0
-    for name in names:
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and name in e.key and e.count > 0]
+    for name, events in zip(names, per_name):
         assert events, f"no device time recorded for {name}"
         total += sum(e.self_device_time_total for e in events) / sum(
             e.count for e in events) / 1e3
@@ -444,9 +475,6 @@ def images(batch: int, queue: int, seed: int = 1):
 
 
 def phase_e2e(batch: int = 16, queue: int = 4):
-    from finalproject_losslessimagecompression_tpu_torch.codec import (
-        cuda_rans,
-    )
     from finalproject_losslessimagecompression_tpu_torch.codec.container import (
         pack_streams_many,
     )
@@ -461,9 +489,7 @@ def phase_e2e(batch: int = 16, queue: int = 4):
     codec.decompress_many(codec.compress_many(xs), fetch=True)
     torch.cuda.synchronize()
 
-    wrappers = {"rans_cdf_prepass_kernel": cuda_rans.rans_cdf_prepass,
-                "rans_encode_kernel": cuda_rans.rans_encode,
-                "rans_decode_kernel": cuda_rans.rans_decode}
+    wrappers = kernel_wrappers()
     for wrapper in wrappers.values():
         wrapper.launches = 0
     t0 = time.time()
@@ -532,25 +558,191 @@ def profile_pass(codec, xs, unprofiled_wall: float, top: int = 12):
         codec.decompress_many(codec.compress_many(xs), fetch=True)
         torch.cuda.synchronize()
         wall = time.time() - t0
-    # kernels only: operator entries carry their kernels' time as well
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0]
-    busy_us = sum(e.self_device_time_total for e in events)
-    events.sort(key=lambda e: -e.self_device_time_total)
-    rans_us = sum(e.self_device_time_total for e in events
-                  if any(n in e.key for n in ENC + DEC))
+    kernels = kernel_times(prof)
+    busy_us = sum(us for _, us, _ in kernels)
+    rans_us = sum(us for name, us, _ in kernels
+                  if any(n in name for n in ENC + DEC))
     emit({"phase": "profile", "wall_s": wall, "device_busy_s": busy_us / 1e6,
           "rans_device_ms": rans_us / 1e3,
           "device_idle_share": 1.0 - busy_us / 1e6 / wall,
           "device_idle_share_unprofiled": 1.0 - busy_us / 1e6
           / unprofiled_wall,
-          "top": [{"name": e.key[:80], "device_ms": e.self_device_time_total
-                   / 1e3, "calls": e.count} for e in events[:top]]})
+          "top": [{"name": name[:80], "device_ms": us / 1e3, "calls": n}
+                  for name, us, n in kernels[:top]]})
+
+
+def kernel_times(prof):
+    """[(kernel name, device us, launches)] of a profile, most time first.
+    Kernels only: operator entries carry their kernels' time as well, and a
+    user annotation (`Optimizer.step#Adamax.step`) spans its kernels on the
+    device timeline."""
+    times, calls = {}, {}
+    for e in prof.events():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)
+                or e.self_device_time_total <= 0):
+            continue
+        times[e.name] = times.get(e.name, 0.0) + e.self_device_time_total
+        calls[e.name] = calls.get(e.name, 0) + 1
+    return sorted(((k, times[k], calls[k]) for k in times),
+                  key=lambda kv: -kv[1])
 
 
 # ---------------------------------------------------------------------------
-# phase 5: an 8M-symbol message
+# phase 5: the training path at full width
+# ---------------------------------------------------------------------------
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+TRAIN_CONFIG = "configs/imagenet64.yaml"
+# the run's checkpoints and logs, removed at the end
+TRAIN_DIR = os.path.join(ROOT, "logs", "chip_smoke_train")
+
+
+def train_config():
+    """configs/imagenet64.yaml (read by the port's reader) with the two
+    dataloaders on NaturalSynthetic and the run cut to 8 steps."""
+    from finalproject_losslessimagecompression_tpu_torch.cli.train import (
+        apply_overrides,
+        load_config,
+    )
+
+    config = load_config(os.path.join(ROOT, TRAIN_CONFIG))
+
+    def loader(length, seed, train):
+        return {"name": "CustomDataLoader", "batch_size": 16, "nbits": 8,
+                "train": train, "shuffle": train, "cache": True,
+                "dataset": {"name": "NaturalSynthetic", "size": [64, 64, 3],
+                            "length": length, "seed": seed}}
+
+    config["train"]["train_dataloader"] = loader(128, 1, True)
+    config["train"]["test_dataloader"] = loader(16, 0, False)
+    return apply_overrides(config, [
+        "train.max_step=8", "train.evaluate_interval=8",
+        "train.save_interval=8", "train.max_eval_batches=1",
+        "train.log_every=4",
+        f"train.save_path={TRAIN_DIR}/imagenet64.ckpt",
+        f"train.writer_path={TRAIN_DIR}/log",
+    ])
+
+
+def logged(tag):
+    with open(os.path.join(TRAIN_DIR, "log", "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    return [(r["step"], r["value"]) for r in recs if r["tag"] == tag]
+
+
+def same_state(a, b) -> bool:
+    """Equal params, optimizer state and step of two trainers."""
+    sa, sb = a.optimizer.state_dict(), b.optimizer.state_dict()
+    return (a.step == b.step and sa["count"] == sb["count"]
+            and all(torch.equal(x, y) for x, y in zip(
+                a.model.state_dict().values(), b.model.state_dict().values()))
+            and sa["state"].keys() == sb["state"].keys()
+            and all(sa["state"][i][k].device == sb["state"][i][k].device
+                    and torch.equal(sa["state"][i][k], sb["state"][i][k])
+                    for i in sa["state"] for k in sa["state"][i]))
+
+
+def phase_train(wrappers):
+    from finalproject_losslessimagecompression_tpu_torch.cli.train import (
+        build_trainer,
+    )
+    from finalproject_losslessimagecompression_tpu_torch.train.trainer import (
+        LN2,
+    )
+    from finalproject_losslessimagecompression_tpu_torch.utils.profiling import (
+        device_peak_tflops,
+    )
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    config = train_config()
+    t = build_trainer(config)
+    cfg, K, batch = t.cfg, t.steps_per_dispatch, t.trainloader.batch_size
+    # data generation is set-up: fill the caches before the timed steps
+    for ds in (t.trainloader.dataset, t.testloader.dataset):
+        for i in range(len(ds)):
+            ds[i]  # noqa: B018 (fills the cache)
+    fixed = t._to_device(next(iter(t.testloader)))
+    bpd_before = float(t.eval_step(fixed)[0]) / LN2
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    t.train()  # 2 blocks of K steps, then eval (with coding) and save
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    peak_mem_gb = torch.cuda.max_memory_allocated() / 1e9
+    bpd_after = float(t.eval_step(fixed)[0]) / LN2
+
+    losses = [v for _, v in logged("train loss")]
+    assert len(losses) == t.max_step and all(map(math.isfinite, losses)), \
+        losses
+    assert bpd_after < bpd_before, (bpd_before, bpd_after)
+    ev = {tag: logged(tag)[-1][1]
+          for tag in ("test bpd", "real bpd", "coding errors")}
+    assert ev["coding errors"] == 0, ev
+    # training launches no rANS kernel; the eval codes one batch, one
+    # launch of each kernel per level
+    eval_batches = 1
+    assert all(v == cfg.nsplit * eval_batches for v in launches.values()), \
+        launches
+    # step time: blocks after the first, each ended by the loss fetch
+    step_s = statistics.median(v for _, v in logged("step time s"))
+    flops = logged("flops per step")[0][1]
+    peak, peak_name = device_peak_tflops("cuda", cfg.couple.nn.dtype)
+    achieved = flops / step_s / 1e12
+    config["train"]["model"]["load_path"] = t.save_path
+    resumed = build_trainer(config)
+    resume_equal = same_state(t, resumed)
+    assert resume_equal, "a resumed trainer differs from the saved one"
+    del resumed
+    res = {"phase": "train", "config": TRAIN_CONFIG, "batch": batch, "K": K,
+           "steps": t.step, "step_s": step_s,
+           "train_images_per_s": batch / step_s,
+           "flops_per_step": flops, "achieved_tflops": achieved,
+           "mfu_pct": 100.0 * achieved / peak if peak else None,
+           "mfu_peak_tflops": peak, "mfu_peak": peak_name,
+           "peak_mem_gb": peak_mem_gb, "losses": losses,
+           "bpd_before": bpd_before, "bpd_after": bpd_after,
+           "test_bpd": ev["test bpd"], "real_bpd": ev["real bpd"],
+           "coding_errors": int(ev["coding errors"]),
+           "eval_batches": eval_batches, "launches_eval": launches,
+           "resume_equal": resume_equal}
+    emit(res)
+    train_profile(t, step_s)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    return res
+
+
+def train_profile(t, unprofiled_step_s: float, top: int = 12):
+    """torch.profiler over one K-step block of the trainer: device busy and
+    idle share of the block's wall, and the top kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batches = t.next_block(t.steps_per_dispatch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        losses, _ = t.train_block(batches)
+        losses.cpu()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    kernels = kernel_times(prof)
+    busy_us = sum(us for _, us, _ in kernels)
+    K = t.steps_per_dispatch
+    emit({"phase": "train_profile", "K": K, "wall_s": wall,
+          "step_s": wall / K, "device_busy_s": busy_us / 1e6,
+          "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+          "device_idle_share_unprofiled": 1.0 - busy_us / 1e6 / K
+          / unprofiled_step_s,
+          "kernel_launches": sum(n for _, _, n in kernels),
+          "top": [{"name": name[:80], "device_ms": us / 1e3, "calls": n}
+                  for name, us, n in kernels[:top]]})
+
+
+# ---------------------------------------------------------------------------
+# phase 6: an 8M-symbol message
 # ---------------------------------------------------------------------------
 
 
@@ -592,7 +784,7 @@ def phase_large(depth_ns, n: int = 8 * 2**20):
 # ---------------------------------------------------------------------------
 
 
-def kernels_line(rows, e2e):
+def kernels_line(rows, e2e, train):
     head = [r for r in rows if r["S"] == 384 and not r["seeded"]][0]
     out = []
     for key, name, replaces, extra in (
@@ -607,6 +799,8 @@ def kernels_line(rows, e2e):
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": replaces, **extra,
             "launches": e2e["launches"][name] if e2e else None,
+            "launches_train_eval": (train["launches_eval"][name] if train
+                                    else None),
             "max_abs_err": max(r[key]["max_abs_err"] for r in rows),
             "matches_plain": all(r[key]["max_abs_err"] == 0 for r in rows),
             "ms": h["ms"], "plain_ms": h["plain_ms"],
@@ -630,11 +824,12 @@ def main(argv) -> int:
     smi = phase_device()
     depth_ns = phase_depth()
     rows, _, _ = phase_kernels(depth_ns)
-    e2e = None
+    e2e = train = None
     if "--quick" not in argv:
         e2e = phase_e2e()
+        train = phase_train(kernel_wrappers())
         rows.append(phase_large(depth_ns))
-    emit(kernels_line(rows, e2e))
+    emit(kernels_line(rows, e2e, train))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,8 @@ NVIDIA Hopper (H100).
 The JAX package `finalproject_losslessimagecompression_tpu` beside it is the
 reference; this package imports neither it nor JAX.  Ported so far: the
 plain flow codec's serving path, `FlowCodec` over an unconditional `IDFlow`,
-with its interleaved-rANS entropy coder as two hand-written CUDA kernels.
+with its interleaved-rANS entropy coder as hand-written CUDA kernels, and
+the flow trainer (`cli/train.py` -> `train.Trainer`).
 
 Package layout (module names mirror the JAX package):
     ops/        grid rounding, space-to-depth, discretized logistic
@@ -13,7 +14,13 @@ Package layout (module names mirror the JAX package):
     models/     config, DenseBlock, couplings and priors, IDFlow, FlowCodec
     csrc/       CUDA (rANS kernels) and C++ (container state chain) sources,
                 compiled at first use into build/
-    convert.py  flax parameter trees -> this package's state_dict
+    data/       datasets and the batching loader (numpy)
+    train/      optimizers and schedules, metrics, checkpoints, Trainer
+    utils/      timing and FLOP accounting
+    cli/        the training entry point and its YAML-subset reader
+    registry.py name -> constructor registries for the configs
+    convert.py  flax parameter trees and optax states -> this package's
+                state_dicts
 
 Entry points run on the card unless the caller passes device="cpu".
 """

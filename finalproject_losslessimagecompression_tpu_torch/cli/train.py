@@ -1,0 +1,110 @@
+"""Training entry point:
+
+    python -m finalproject_losslessimagecompression_tpu_torch.cli.train \\
+        --config configs/<name>.yaml [--set dotted.path=value ...] [--device cpu]
+
+One --config YAML whose `train` subtree selects a trainer by name
+(`train.trainer`, default Trainer) and passes the rest as constructor
+kwargs; the same files drive the JAX package's trainer.  The YAML is read by
+the port's own subset reader (`cli/yamlite.py`), so training needs no
+PyYAML.  The trainer runs on the card unless `--device cpu` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+from ..registry import TRAINERS
+from ..train import trainer as _trainer  # noqa: F401 (registers Trainer)
+from . import yamlite
+
+# trainers of the JAX package that the port does not have yet, with the
+# ROADMAP queue 1 item that ports each
+NOT_PORTED = {
+    "VQVAETrainer": "item 11 (VQ-VAE and residual pipeline)",
+    "ResidualTrainer": "item 11 (VQ-VAE and residual pipeline)",
+    "TwoLevelTrainer": "item 12 (two-level pyramid)",
+    "Finetuner": "item 13 (fine-tuner)",
+    "FineTuner": "item 13 (fine-tuner)",
+}
+
+
+def load_config(path: str) -> dict:
+    return yamlite.load(path)
+
+
+def apply_overrides(config: dict, sets) -> dict:
+    """Apply `--set dotted.path=value` overrides in place.
+
+    Values parse as YAML scalars (`5000` -> int, `true` -> bool, quoted
+    strings stay strings), and a string that reads as a float (`1e-4`,
+    which YAML 1.1 leaves a string) becomes one.  Intermediate dicts are
+    created as needed, so a path can introduce a new key; a path through a
+    non-dict raises."""
+    for item in sets or ():
+        key, sep, raw = item.partition("=")
+        if not sep:
+            raise SystemExit(f"--set expects dotted.path=value, got {item!r}")
+        node = config
+        parts = key.split(".")
+        for p in parts[:-1]:
+            nxt = node.setdefault(p, {})
+            if not isinstance(nxt, dict):
+                raise SystemExit(
+                    f"--set {key}: {p!r} is a {type(nxt).__name__}, "
+                    "not a mapping"
+                )
+            node = nxt
+        value = yamlite.parse_scalar(raw)
+        if isinstance(value, str):
+            try:
+                value = float(value)
+            except ValueError:
+                pass
+        node[parts[-1]] = value
+    return config
+
+
+def build_trainer(config: dict, device=None):
+    train_cfg = dict(config["train"])
+    name = train_cfg.pop("trainer", "Trainer")
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"{name} is not ported to PyTorch yet: ROADMAP queue 1, "
+            f"{NOT_PORTED[name]}")
+    return TRAINERS.get(name)(**train_cfg, device=device)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--config", type=str, required=True)
+    ap.add_argument(
+        "--device", type=str, default=None,
+        help="torch device to train on (default: the card; 'cpu' to run "
+        "on the CPU)",
+    )
+    ap.add_argument(
+        "--distributed", action="store_true",
+        help="multi-process training (not ported yet)",
+    )
+    ap.add_argument(
+        "--set", action="append", default=[], metavar="KEY=VALUE",
+        help="override a config entry by dotted path, e.g. "
+        "--set train.max_step=5000 --set train.save_path=./logs/x.ckpt; "
+        "values parse as YAML scalars. Repeatable.",
+    )
+    args = ap.parse_args(argv)
+    if args.distributed:
+        raise NotImplementedError(
+            "--distributed is not ported yet: ROADMAP queue 1, item 15 "
+            "(scale-out)")
+    config = apply_overrides(load_config(args.config), args.set)
+    print(json.dumps(config, indent=2))
+    t = build_trainer(config, device=args.device)
+    t.train()
+    return t
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,6 @@
-"""Weights carried across: a flax IDFlow parameter tree -> this package's
+"""Weights and optimizer state carried across from the JAX package.
+
+`params_from_flax(tree)`: a flax IDFlow parameter tree -> this package's
 `state_dict`.
 
 `params_from_flax(tree)` takes the JAX package's parameter tree as nested
@@ -13,11 +15,16 @@ and each DenseLayer holds its four leaves in either layout: fused
 (`conv1_kernel`, `conv1_bias`, `conv3_kernel`, `conv3_bias`) or unfused
 (`conv1/{kernel, bias}`, `conv3/{kernel, bias}`).  Kernels go from HWIO to
 OIHW; values are copied unchanged.
+
+`opt_state_from_optax(opt_state, names, name)`: an optax Adamax or Adam
+state (`count`, and `mu` / `nu` trees shaped like the params) -> the
+state_dict of this package's `train.optim.Optimizer`, so that a JAX run
+resumes in the port on the same trajectory.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Iterable
 
 import numpy as np
 import torch
@@ -66,5 +73,45 @@ def params_from_flax(tree) -> Dict[str, torch.Tensor]:
             _block(node["net"], f"priors.{level}.net.", out)
         else:
             raise KeyError(f"unexpected IDFlow entry {name!r}")
-    return {k: torch.from_numpy(np.ascontiguousarray(v))
-            for k, v in out.items()}
+    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+
+
+# the torch optimizer's name for optax's second moment
+_SECOND_MOMENT = {"Adamax": "exp_inf", "Adam": "exp_avg_sq"}
+
+
+def _adam_state(node):
+    """The ScaleByAdamState (count, mu, nu) inside an optax state."""
+    if hasattr(node, "mu") and hasattr(node, "nu"):
+        return node
+    if isinstance(node, (tuple, list)):
+        for sub in node:
+            found = _adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def opt_state_from_optax(opt_state, names: Iterable, name: str = "Adamax"):
+    """The port optimizer's state_dict from an optax Adamax/Adam state.
+
+    `opt_state` is the JAX trainer's optimizer state with numpy leaves (what
+    `jax.device_get` returns; a chain with `clip_by_global_norm` in front
+    is fine); `names` are the port model's parameter names in the
+    optimizer's order (`[n for n, _ in model.named_parameters()]`, or the
+    pairs themselves); `name` is the optimizer's config name."""
+    st = _adam_state(opt_state)
+    if st is None or name not in _SECOND_MOMENT:
+        raise ValueError(f"no {name} moments in this optax state")
+    mu, nu = params_from_flax(st.mu), params_from_flax(st.nu)
+    names = [n if isinstance(n, str) else n[0] for n in names]
+    if sorted(names) != sorted(mu):
+        raise KeyError("optax moments do not match the parameter names: "
+                       f"{sorted(set(names) ^ set(mu))}")
+    count = int(np.asarray(st.count))
+    state = {
+        i: {"step": torch.tensor(float(count)), "exp_avg": mu[n],
+            _SECOND_MOMENT[name]: nu[n]}
+        for i, n in enumerate(names)
+    }
+    return {"count": count, "state": state}

@@ -19,6 +19,7 @@ from torch import nn
 
 from ..ops.dlogistic import dlogistic_log_prob
 from ..ops.reshape import depth_to_space, space_to_depth
+from ..ops.rounding import round_to_grid
 from .config import FlowCfg, latent_shapes, level_plans
 from .invertible import (
     AdditiveCoupling,
@@ -187,6 +188,25 @@ class IDFlow(nn.Module):
             x = z if level == cfg.nsplit - 1 else torch.cat([z, x], dim=-1)
             x = self.flow_level_inverse(x, level)
             x = depth_to_space(x, cfg.extend_scale)
+        if cfg.batch_squeeze:
+            x = unfold_batch(x, cfg.C)
+        return x
+
+    def sample_from_noise(self, noises: Sequence[torch.Tensor]):
+        """Map standard-logistic noise latents (NHWC, one per level) through
+        the priors and the inverse flow: at each level, from nsplit-1 down,
+        z = round(noise * exp(logscale) + mean) with the prior of the data
+        generated so far."""
+        cfg = self.cfg
+        x = None
+        for level in range(cfg.nsplit - 1, -1, -1):
+            noise = noises[level]
+            last = level == cfg.nsplit - 1
+            mean, logscale = self.prior_params(noise if last else x, level)
+            z = round_to_grid(noise * torch.exp(logscale) + mean, cfg.nbits)
+            x = z if last else torch.cat([z, x], dim=-1)
+            x = depth_to_space(self.flow_level_inverse(x, level),
+                               cfg.extend_scale)
         if cfg.batch_squeeze:
             x = unfold_batch(x, cfg.C)
         return x

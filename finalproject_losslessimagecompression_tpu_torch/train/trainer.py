@@ -1,0 +1,346 @@
+"""Flow trainer: the JAX package's `Trainer` on PyTorch.
+
+One train step is forward, `log_likelihood`, backward, the optimizer's
+clip and update.  Steps run in blocks of K = `steps_per_dispatch`: the K
+batches go to the device in one copy, the K steps run with no host sync
+and their losses stay stacked on the device, and one copy brings the K
+losses back when the block is logged -- the JAX package's scanned K-step
+program, with eager steps.  Intervals must be multiples of K.
+
+Eval computes the test bpd and, with `test_coding`, compresses and
+decompresses every eval batch for real through `FlowCodec` (on the card:
+the rANS kernels), counting mismatched values and the real coded bpd.  A
+container that does not decode (`ValueError`) counts the whole batch as
+errors; any other failure raises.  Building the codec pins the process to
+deterministic float32 cuDNN with TF32 off (`models/exact.py`), so training
+runs under the same arithmetic contract as the codec.
+
+The trainer runs on the card unless the caller passes device="cpu".
+Checkpoints hold {params, opt_state, step}; a resume whose step is not a
+multiple of K realigns the step down (the optimizer's own update count,
+which drives the learning rate, is restored as saved).
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..data import loader as _loader  # noqa: F401  (registers loaders)
+from ..models.config import FlowCfg, latent_shapes
+from ..models.exact import FlowCodec
+from ..models.idflow import IDFlow, log_likelihood, resolve_device
+from ..ops.dlogistic import dlogistic_sample
+from ..registry import DATALOADERS, TRAINERS, build
+from ..utils.profiling import PhaseTimer, device_peak_tflops, fence, step_flops
+from .checkpoint import load_checkpoint, save_checkpoint
+from .metrics import MetricsWriter
+from .optim import build_optimizer
+
+LN2 = math.log(2.0)
+
+
+@TRAINERS.register(name="Trainer")
+class Trainer:
+    """Config shape: the `train` subtree of configs/*.yaml."""
+
+    def __init__(
+        self,
+        model: dict,
+        train_dataloader: dict,
+        test_dataloader: dict,
+        optimizer: dict,
+        scheduler: dict,
+        max_step: int,
+        step_per_epoch: int,
+        evaluate_interval: int,
+        save_interval: int,
+        save_path: str,
+        writer_path: str,
+        test_coding: bool = False,
+        seed: int = 0,
+        num_streams: int = 4096,
+        max_eval_batches: int = 0,
+        use_mesh: bool = False,
+        log_every: int = 1,
+        steps_per_dispatch: int = 1,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        if (use_mesh and self.device.type == "cuda"
+                and torch.cuda.device_count() > 1):
+            raise NotImplementedError(
+                "use_mesh over several GPUs is not ported yet (ROADMAP "
+                "queue 1, item 15: scale-out); set use_mesh: false or make "
+                "one GPU visible")
+        model = dict(model)
+        self.load_path = model.pop("load_path", None)
+        self.cfg = FlowCfg.from_ref(model)
+        self.model = IDFlow(self.cfg, device=self.device, seed=seed)
+        self.trainloader = build(DATALOADERS, train_dataloader)
+        self.testloader = build(DATALOADERS, test_dataloader)
+        self.optimizer = build_optimizer(self.model.parameters(), optimizer,
+                                         scheduler, step_per_epoch)
+        self.max_step = max_step
+        self.step_per_epoch = step_per_epoch
+        self.evaluate_interval = evaluate_interval
+        self.save_interval = save_interval
+        self.save_path = save_path
+        self.writer = MetricsWriter(writer_path)
+        self.test_coding = test_coding
+        self.num_streams = num_streams
+        self.max_eval_batches = max_eval_batches
+        self.log_every = max(1, log_every)
+        self.steps_per_dispatch = max(1, steps_per_dispatch)
+        if self.steps_per_dispatch > 1:
+            for name, iv in (
+                ("evaluate_interval", evaluate_interval),
+                ("save_interval", save_interval),
+                ("step_per_epoch", step_per_epoch),
+                # without this the loop overshoots max_step by up to K-1
+                ("max_step", max_step),
+            ):
+                if iv % self.steps_per_dispatch:
+                    raise ValueError(
+                        f"{name}={iv} must be a multiple of "
+                        f"steps_per_dispatch={self.steps_per_dispatch}"
+                    )
+        self.step = 0
+        if self.load_path:
+            self.restore(self.load_path)
+            K = self.steps_per_dispatch
+            if K > 1 and self.step % K:
+                # a step not congruent 0 mod K would put every interval
+                # check (all multiples of K) off phase: realign DOWN
+                # (re-runs up to K-1 training steps)
+                old = self.step
+                self.step -= self.step % K
+                print(f"resume: step {old} realigned to {self.step} "
+                      f"(steps_per_dispatch={K} blocks)")
+        self.codec = FlowCodec(self.model, num_streams=self.num_streams)
+        self.sample_gen = torch.Generator(device=self.device).manual_seed(
+            seed + 1)
+
+    # -- checkpointing ----------------------------------------------------
+
+    def _state(self):
+        return {
+            "params": self.model.state_dict(),
+            "opt_state": self.optimizer.state_dict(),
+            "step": self.step,
+        }
+
+    def save(self, path: Optional[str] = None):
+        save_checkpoint(path or self.save_path, self._state())
+
+    def restore(self, path: str):
+        st = load_checkpoint(path, self.device)
+        self.model.load_state_dict(st["params"])
+        self.optimizer.load_state_dict(st["opt_state"])
+        self.step = int(st["step"])
+
+    # -- steps ------------------------------------------------------------
+
+    def loss_fn(self, batch: torch.Tensor):
+        """(mean NLL in nats/dim, aux) of an NHWC batch on the device."""
+        cfg = self.cfg
+        latents, means, logscales = self.model(batch)
+        lp, per_split = log_likelihood(cfg, latents, means, logscales)
+        loss = -lp.mean()
+        aux = {
+            "per_split_bpd": torch.stack([-s.mean() / LN2
+                                          for s in per_split]),
+            "max_z": torch.stack([z.max() * 2 ** cfg.nbits
+                                  for z in latents]),
+            "min_z": torch.stack([z.min() * 2 ** cfg.nbits
+                                  for z in latents]),
+        }
+        return loss, aux
+
+    @torch.no_grad()
+    def eval_step(self, batch: torch.Tensor):
+        return self.loss_fn(batch)
+
+    def train_step(self, batch: torch.Tensor):
+        """One update; returns (loss, aux) on the device, no host sync."""
+        loss, aux = self.loss_fn(batch)
+        self.optimizer.zero_grad()
+        loss.backward()
+        self.optimizer.step()
+        return loss.detach(), {k: v.detach() for k, v in aux.items()}
+
+    def train_block(self, batches: torch.Tensor):
+        """len(batches) steps, one per batch of a [K, B, H, W, C] block;
+        returns (the K losses stacked, the last step's aux), on the device,
+        with no host sync."""
+        out = [self.train_step(b) for b in batches]
+        return torch.stack([loss for loss, _ in out]), out[-1][1]
+
+    def next_block(self, K: int) -> torch.Tensor:
+        """K train batches as one [K, B, H, W, C] tensor on the device, in
+        one copy."""
+        host = torch.from_numpy(np.stack(
+            [np.asarray(next(self.trainloader)) for _ in range(K)]))
+        if self.device.type == "cuda":
+            return host.pin_memory().to(self.device, non_blocking=True)
+        return host.to(self.device)
+
+    # -- eval -------------------------------------------------------------
+
+    def _to_device(self, host: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(host)).to(self.device)
+
+    def evaluate(self):
+        timer = PhaseTimer()
+        bpds, real_bpds, errors = [], [], 0
+        n_batches = 0
+        warm = False
+        for host in iter(self.testloader):
+            batch = self._to_device(host)
+            if not warm:
+                # cuDNN handles and the allocator, outside the timed phase
+                self.eval_step(batch)
+                fence(self.device)
+                warm = True
+            with timer.phase("forward"):
+                loss, _ = self.eval_step(batch)
+                loss_v = float(loss)  # a host copy: the phase's fence
+            bpds.append(loss_v / LN2)
+            if self.test_coding:
+                try:
+                    with timer.phase("encode"):
+                        blobs, info = self.codec.compress(batch)
+                    with timer.phase("decode"):
+                        rec = self.codec.decompress(blobs, info, fetch=True)
+                    errors += int(np.sum(rec != host))
+                    real_bpds.append(self.codec.real_bpd(blobs, info))
+                except ValueError:
+                    # an undecodable container: the whole batch failed
+                    errors += int(host.size)
+            n_batches += 1
+            if self.max_eval_batches and n_batches >= self.max_eval_batches:
+                break
+        rep = timer.report()
+        out = {
+            "test_bpd": float(np.mean(bpds)) if bpds else float("nan"),
+            "forward_time": rep.get("forward", {}).get("total_s", 0.0),
+        }
+        if self.test_coding:
+            out["real_bpd"] = (
+                float(np.mean(real_bpds)) if real_bpds else float("nan")
+            )
+            out["coding_errors"] = errors
+            out["coding_time"] = (
+                rep.get("encode", {}).get("total_s", 0.0)
+                + rep.get("decode", {}).get("total_s", 0.0)
+            )
+            out["phase_report"] = rep
+        return out
+
+    @torch.no_grad()
+    def sample_images(self, batch: int = 16, temperatures=(0.25, 0.5, 0.75)):
+        noises = []
+        for s in latent_shapes(self.cfg):
+            zero = torch.zeros((batch,) + tuple(s), device=self.device)
+            noises.append(dlogistic_sample(zero, zero, self.cfg.nbits,
+                                           self.sample_gen))
+        return {
+            t: self.model.sample_from_noise([n * t for n in noises])
+            .cpu().numpy()
+            for t in temperatures
+        }
+
+    # -- main loop --------------------------------------------------------
+
+    def train(self):
+        """Main loop; on any exception or interrupt a rescue checkpoint is
+        written beside save_path, so a long run always resumes."""
+        try:
+            self._train_loop()
+        except BaseException:
+            try:
+                self.save(self.save_path + ".rescue")
+                print(f"rescue checkpoint: {self.save_path}.rescue "
+                      f"(step {self.step})")
+            except Exception as err:  # the original error matters more
+                print(f"rescue checkpoint failed: {err!r}")
+            raise
+
+    def _log_rate(self, step_s: float, flops: int, peak) -> None:
+        self.writer.add_scalar("step time s", step_s, self.step)
+        if flops and step_s > 0:
+            tf = flops / step_s / 1e12
+            self.writer.add_scalar("achieved tflops", tf, self.step)
+            if peak:
+                self.writer.add_scalar("mfu pct", 100.0 * tf / peak,
+                                       self.step)
+
+    def _train_loop(self):
+        K = self.steps_per_dispatch
+        # losses come back every `period` blocks of K steps: every
+        # log_every steps when log_every is a multiple of K
+        period = max(1, self.log_every // K)
+        flops = None
+        peak, peak_name = device_peak_tflops(self.device,
+                                             self.cfg.couple.nn.dtype)
+        if peak:
+            print(f"mfu denominator: {peak_name}, {peak} TFLOP/s")
+            self.writer.add_scalar("mfu peak tflops", peak, 0)
+        last_sync = None
+        aux = None
+        while self.step < self.max_step:
+            batches = self.next_block(K)
+            if flops is None:
+                # FLOPs of one step, counted over the first block (its K
+                # steps have the same shapes)
+                (losses, aux), block_flops = step_flops(
+                    lambda: self.train_block(batches))
+                flops = block_flops // K
+                self.writer.add_scalar("flops per step", flops, 0)
+            else:
+                losses, aux = self.train_block(batches)
+            self.step += K
+            if (self.step // K) % period == 0:
+                ls = losses.cpu().numpy()  # ONE sync per block
+                for j, lv in enumerate(ls):
+                    s = self.step - K + 1 + j
+                    self.writer.add_scalar("train loss", float(lv), s)
+                    self.writer.add_scalar("train bpd", float(lv) / LN2, s)
+                now = time.time()
+                if last_sync is not None:
+                    self._log_rate((now - last_sync) / (period * K), flops,
+                                   peak)
+                last_sync = now
+
+            if self._at_interval(self.evaluate_interval):
+                for i, (mx, mn, sb) in enumerate(zip(
+                        *(aux[k].cpu().numpy()
+                          for k in ("max_z", "min_z", "per_split_bpd")))):
+                    print(f"split_id: {i} , max_z : {mx} , min_z : {mn} "
+                          f", bpd_for_split : {sb}")
+                ev = self.evaluate()
+                self.writer.add_scalar("test bpd", ev["test_bpd"], self.step)
+                if self.test_coding:
+                    if np.isfinite(ev.get("real_bpd", float("nan"))):
+                        self.writer.add_scalar(
+                            "real bpd", ev["real_bpd"], self.step
+                        )
+                    self.writer.add_scalar(
+                        "coding errors", ev["coding_errors"], self.step
+                    )
+                for t, img in self.sample_images().items():
+                    self.writer.add_image_grid(f"t={t}", img, self.step)
+
+            if self._at_interval(self.save_interval):
+                self.save()
+        self.save()
+
+    def _at_interval(self, interval: int) -> bool:
+        # every epoch before the first interval, then at the interval
+        return (
+            self.step % self.step_per_epoch == 0 and self.step < interval
+        ) or self.step % interval == 0

@@ -1,0 +1,77 @@
+"""Timing and FLOP accounting for the trainer.
+
+- `PhaseTimer`: accumulating host wall-clock spans with a report.
+- `fence(device)`: `torch.cuda.synchronize()` on the card (PyTorch returns
+  before the device finishes, so a timed region must end in one), nothing
+  on the CPU.
+- `step_flops(fn)`: runs fn once under `FlopCounterMode` and returns its
+  result and the FLOPs of the matrix products and convolutions it ran
+  (forward and backward; elementwise work is not counted).
+- `device_peak_tflops(dtype)`: the peak of the arithmetic a step really
+  runs on an H100 SXM (NVIDIA's data sheet, dense): float32 runs on the
+  CUDA cores at 67 TFLOP/s (the trainer's codec pins TF32 off), bfloat16
+  989.  None off the card or on another card.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from collections import defaultdict
+from typing import Dict, Iterator, Optional, Tuple
+
+import torch
+
+
+def fence(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class PhaseTimer:
+    def __init__(self):
+        self.totals: Dict[str, float] = defaultdict(float)
+        self.counts: Dict[str, int] = defaultdict(int)
+
+    @contextlib.contextmanager
+    def phase(self, name: str) -> Iterator[None]:
+        t0 = time.time()
+        try:
+            yield
+        finally:
+            self.totals[name] += time.time() - t0
+            self.counts[name] += 1
+
+    def report(self) -> Dict[str, Dict[str, float]]:
+        return {
+            k: {"total_s": self.totals[k], "count": self.counts[k],
+                "mean_s": self.totals[k] / max(self.counts[k], 1)}
+            for k in self.totals
+        }
+
+
+def step_flops(fn) -> Tuple[object, int]:
+    """(fn(), FLOPs counted while it ran)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    counter = FlopCounterMode(display=False)
+    with counter:
+        out = fn()
+    return out, int(counter.get_total_flops())
+
+
+# H100 SXM dense peaks in TFLOP/s by compute dtype (NVIDIA's data sheet)
+_H100_PEAK_TFLOPS = {"float32": 67.0, "bfloat16": 989.0}
+
+
+def device_peak_tflops(device, dtype: str = "float32"
+                       ) -> Tuple[Optional[float], Optional[str]]:
+    """(peak TFLOP/s, which peak) of the card for a step computing in
+    `dtype`; (None, None) off the card or on a card not in the table."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None, None
+    name = torch.cuda.get_device_name(device)
+    if "H100" not in name or "PCIe" in name:
+        return None, None
+    return _H100_PEAK_TFLOPS[dtype], f"H100 SXM {dtype} dense"

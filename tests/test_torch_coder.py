@@ -9,6 +9,7 @@ kernels cannot run here: their wrappers take the plain path for CPU tensors,
 and chip_smoke.py holds the kernels against that plain path on the card.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -51,6 +52,8 @@ from finalproject_losslessimagecompression_tpu_torch.codec.cuda_rans import (
 )
 
 torch.set_num_threads(2)  # the suite runs several workers at once
+# a process's first parallel CPU exp can be inaccurate (test_torch_flow.py)
+torch.exp(torch.zeros(1 << 16))
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = "finalproject_losslessimagecompression_tpu_torch"
@@ -96,29 +99,59 @@ def _agreeing_symbols(rng, n):
 # ---------------------------------------------------------------------------
 
 
-def test_port_imports_no_jax():
+def test_port_imports_no_jax(tmp_path):
     """Every port module and the root chip scripts import without jax, flax
-    or the JAX package (checked in a fresh interpreter)."""
+    or the JAX package (checked in a fresh interpreter).  In the same
+    interpreter yaml, PIL, msgpack, optax and tensorboard -- packages the
+    card's machine does not have -- are blocked at import, and the training
+    CLI still trains one CPU step with eval coding and saves."""
     mods = [
         f"{PORT}.{m}" for m in (
             "codec", "codec.cdf", "codec.interleaved", "codec.native",
             "codec.cuda_rans", "codec.container", "codec.coder", "ops", "ops.rounding",
             "ops.reshape", "ops.dlogistic", "models", "models.config",
             "models.layers", "models.invertible", "models.idflow",
-            "models.exact", "convert",
+            "models.exact", "convert", "registry", "data", "data.datasets",
+            "data.loader", "train", "train.optim", "train.metrics",
+            "train.checkpoint", "train.trainer", "utils.profiling",
+            "cli.yamlite", "cli.train",
         )
     ] + [PORT, "chip_smoke", "chip_decode_variants"]
+    blocked = ("yaml", "PIL", "msgpack", "optax", "tensorboard",
+               "tensorflow")
+    sets = ["max_step=1", "step_per_epoch=1", "evaluate_interval=1",
+            "save_interval=1", "max_eval_batches=1", "num_streams=64",
+            f"save_path={tmp_path / 'm.ckpt'}",
+            f"writer_path={tmp_path / 'log'}"]
+    argv = ["--config", os.path.join(REPO, "configs", "smoke_synthetic.yaml"),
+            "--device", "cpu"] + [a for kv in sets
+                                  for a in ("--set", "train." + kv)]
+    check = (
+        "bad = [m for m, mod in sys.modules.items() if mod is not None and "
+        "m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
+        f"'finalproject_losslessimagecompression_tpu') + {blocked!r}]\n"
+        "assert not bad, bad\n"
+    )
     code = (
         "import sys\n"
+        # a None entry makes `import name` raise ImportError and
+        # importlib.util.find_spec(name) report the package missing
+        + "".join(f"sys.modules[{b!r}] = None\n" for b in blocked)
         + "".join(f"import {m}\n" for m in mods)
-        + "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'finalproject_losslessimagecompression_tpu')]\n"
-        "assert not bad, bad\n"
+        + check
+        + f"t = {PORT}.cli.train.main({argv!r})\n"
+        "assert t.step == 1 and t.writer._tb is None\n"
+        + check
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+    with open(tmp_path / "log" / "metrics.jsonl") as f:
+        tags = {json.loads(line)["tag"]: json.loads(line)["value"]
+                for line in f}
+    assert tags["coding errors"] == 0 and "train loss" in tags
+    assert os.path.exists(tmp_path / "m.ckpt")
 
 
 # ---------------------------------------------------------------------------
