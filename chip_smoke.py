@@ -44,7 +44,41 @@ Phases, each printing one JSON line:
             launches of that eval, and whether a trainer resumed from the
             checkpoint holds the same params, optimizer state and step.
             Then `train_profile`: torch.profiler over one more K-step block.
-6. large    an 8M-symbol message (S=8192, k=1024): the kernels against their
+6. cli      the file codec CLI's serve session (`cli.codec`) on
+            configs/imagenet64.yaml's model at full width, from a checkpoint
+            of seeded weights with perturbed projections that the phase
+            writes (under logs/chip_smoke_cli, removed at the end): 16 .npy
+            files of 64x64x3 and one of 150x200x3 (12 tiles: chunks 8 + 4)
+            compressed twice (cold, warm) and decompressed with the stored
+            escape off, then a 5x6x3 file and a 64x64x3 one compressed with
+            it on (the 5x6 must take the escape: stored-png where PIL is
+            installed, stored-zlib where not) and decompressed in one
+            command with a flow container of the first session (stored and
+            flow entries mixed); every file bit-exact, one launch of each
+            coding kernel per chunk layout per level in each command's
+            direction.  Startup seconds, each command's `ok` seconds and
+            rANS launches, the CLI's TIMER phases, bytes and bpd per mode,
+            files/s and tiles/s.
+7. residual the VQ-VAE residual pipeline at full width:
+            configs/resflow-cond-imagenet64.yaml (ConditionalFlows with
+            conv_for_cond, coupling DenseBlocks 384 x 8, prior 512 x 12,
+            LeakyReLU; VQ-VAE 8192 x 512, hidden dims 128/256/512, 8
+            ResBlocks), seeded weights, projections perturbed.
+            ResidualCodec.compress_many / decompress_many(fetch=True) on a
+            queue of 4 batches of 16 images, bit-exact, one launch of each
+            rANS kernel per level; real_bpd split into index and residual
+            bits; a phase split fenced with synchronize (VQ encode,
+            reconstruction, flow encode, pack, decode); then
+            `residual_profile` (torch.profiler over one more queue), and
+            4 files through the CLI with this config (`residual_cli`), the
+            VQ checkpoint written by the phase: compressed in this process
+            and decompressed in a new one, bit-exact.
+   paths    phase 3's kernel checks at every other (S, k, seeded) shape
+            that phases 4, 6 and 7 coded with (each codec's own stream
+            policy over its batch sizes: the CLI's chunks of 1, 8 and 4
+            tiles), so every launch shape of every path is held against
+            the plain coder.
+8. large    an 8M-symbol message (S=8192, k=1024): the kernels against their
             plain versions as in phase 3, then the whole encode and decode
             timed, bit-exact.
 
@@ -54,6 +88,9 @@ no CUDA device, or outside the repository, it exits non-zero and prints no
 result.  `--quick` runs phases 1-3 only.
 """
 
+import contextlib
+import importlib.util
+import io
 import json
 import math
 import os
@@ -434,9 +471,47 @@ def phase_kernels(depth_ns):
     return rows, grouped_case(), corrupt_case()
 
 
+def coded_shapes(codec, batches):
+    """[[S, k, seeded]] of every coding launch a FlowCodec makes on batches
+    of the given sizes, from its own stream policy (level 0 is unseeded)."""
+    from finalproject_losslessimagecompression_tpu_torch.codec.interleaved import (  # noqa: E501
+        _plan_steps,
+    )
+
+    out = set()
+    for b in batches:
+        fold = 1 if codec.cfg.batch_squeeze else b
+        for level, p in enumerate(codec.plans):
+            S = codec._level_S(level, fold)
+            out.add((S, _plan_steps(fold * p.z_ch * p.h * p.w, S), level > 0))
+    return [list(s) for s in sorted(out)]
+
+
+def path_kernels(rows, paths, depth_ns, seed: int = 130):
+    """kernel_case at every (S, k, seeded) a driven path coded with that no
+    row holds yet, so each launch shape of every path is held against the
+    plain coder."""
+    have = {(r["S"], r["k"], r["seeded"]) for r in rows}
+    for S, k, seeded in sorted({tuple(s) for p in paths
+                                for s in p["kernel_shapes"]} - have):
+        rows.append(kernel_case(S, k, seeded, seed, depth_ns))
+        seed += 1
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path at full width
 # ---------------------------------------------------------------------------
+
+
+def perturbed(model, seed: int = 1):
+    """Fresh projections are zero, which would make every shift and prior
+    trivial: perturb them by N(0, 0.01^2) from a seeded generator."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if ".proj." in name:
+                p.add_(0.01 * torch.randn(p.shape, generator=g).to(p.device))
+    return model.eval()
 
 
 def flagship_codec():
@@ -453,14 +528,7 @@ def flagship_codec():
         couple=CouplingCfg(0.75, DenseBlockCfg(512, 12, "ReLU", "float32")),
         prior_nn=DenseBlockCfg(512, 12, "ReLU", "float32"),
     )
-    model = IDFlow(cfg, device="cuda", seed=0).eval()
-    # fresh projections are zero, which would make every shift and prior
-    # trivial: perturb them from a seeded generator
-    g = torch.Generator(device="cpu").manual_seed(1)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            if ".proj." in name:
-                p.add_(0.01 * torch.randn(p.shape, generator=g).to(p.device))
+    model = perturbed(IDFlow(cfg, device="cuda", seed=0))
     return cfg, model, FlowCodec(model, num_streams=8192)
 
 
@@ -472,6 +540,19 @@ def images(batch: int, queue: int, seed: int = 1):
             np.float32) / 256.0)
         for _ in range(queue)
     ]
+
+
+def timed(fn):
+    """(fn(), seconds), fenced with synchronize on both sides and timed
+    with CUDA events."""
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b) / 1e3
 
 
 def phase_e2e(batch: int = 16, queue: int = 4):
@@ -512,16 +593,6 @@ def phase_e2e(batch: int = 16, queue: int = 4):
 
     # phase split of one more queue pass, each fenced with synchronize and
     # timed with CUDA events
-    def timed(fn):
-        torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        out = fn()
-        b.record()
-        torch.cuda.synchronize()
-        return out, a.elapsed_time(b) / 1e3
-
     per_batch, t_enc = timed(lambda: codec._compress_deferred_many(xs))
     flat = [e for encs, _ in per_batch for e in encs]
     blobs, t_pack = timed(lambda: pack_streams_many(flat))
@@ -539,30 +610,33 @@ def phase_e2e(batch: int = 16, queue: int = 4):
                         "verify": t_verify},
            "launches": launches,
            "streams_per_level": [codec._level_S(lv, batch)
-                                 for lv in range(nl)]}
+                                 for lv in range(nl)],
+           "kernel_shapes": coded_shapes(codec, [batch])}
     emit(res)
-    profile_pass(codec, xs, wall)
+    profile_pass(lambda: codec.decompress_many(codec.compress_many(xs),
+                                               fetch=True), wall)
     return res
 
 
-def profile_pass(codec, xs, unprofiled_wall: float, top: int = 12):
-    """torch.profiler over one queue pass: device time by kernel name and
-    the share of wall time the device sat idle, against the profiled pass's
-    own wall time and against the unprofiled pass's."""
+def profile_pass(run, unprofiled_wall: float, phase: str = "profile",
+                 top: int = 12):
+    """torch.profiler over one queue pass `run()`: device time by kernel
+    name and the share of wall time the device sat idle, against the
+    profiled pass's own wall time and against the unprofiled pass's."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        codec.decompress_many(codec.compress_many(xs), fetch=True)
+        run()
         torch.cuda.synchronize()
         wall = time.time() - t0
     kernels = kernel_times(prof)
     busy_us = sum(us for _, us, _ in kernels)
     rans_us = sum(us for name, us, _ in kernels
                   if any(n in name for n in ENC + DEC))
-    emit({"phase": "profile", "wall_s": wall, "device_busy_s": busy_us / 1e6,
+    emit({"phase": phase, "wall_s": wall, "device_busy_s": busy_us / 1e6,
           "rans_device_ms": rans_us / 1e3,
           "device_idle_share": 1.0 - busy_us / 1e6 / wall,
           "device_idle_share_unprofiled": 1.0 - busy_us / 1e6
@@ -742,7 +816,287 @@ def train_profile(t, unprofiled_step_s: float, top: int = 12):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: an 8M-symbol message
+# phases 6-7: the file codec CLI and the residual pipeline at full width
+# ---------------------------------------------------------------------------
+
+RES_CONFIG = "configs/resflow-cond-imagenet64.yaml"
+# the phases' checkpoints and files, removed at the end
+CLI_DIR = os.path.join(ROOT, "logs", "chip_smoke_cli")
+# the file CLI in a process of its own (`python -c CLI_CHILD <CLI args>`):
+# it runs `cli.codec.main`, then prints the kernels' launch counts as JSON
+CLI_CHILD = """
+import json, sys
+from finalproject_losslessimagecompression_tpu_torch.cli import codec
+from finalproject_losslessimagecompression_tpu_torch.codec import cuda_rans
+codec.main(sys.argv[1:])
+print(json.dumps({f.__name__ + "_kernel": f.launches for f in (
+    cuda_rans.rans_cdf_prepass, cuda_rans.rans_encode, cuda_rans.rans_decode)}))
+"""
+
+
+def write_images(d: str, shapes, seed: int):
+    """[(path, uint8 array)] of uniform-noise .npy images."""
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    out = []
+    for i, shape in enumerate(shapes):
+        arr = rng.integers(0, 256, shape).astype(np.uint8)
+        path = os.path.join(d, f"img{i:02d}_{shape[0]}x{shape[1]}.npy")
+        np.save(path, arr)
+        out.append((path, arr))
+    return out
+
+
+def lic_stats(paths):
+    """{mode: {"files", "bytes", "bpd"}} of .lic files, from their headers."""
+    import struct
+
+    out = {}
+    for p in paths:
+        with open(p, "rb") as f:
+            data = f.read()
+        (hlen,) = struct.unpack("<I", data[4:8])
+        h = json.loads(data[8:8 + hlen])
+        m = out.setdefault(h["mode"], {"files": 0, "bytes": 0, "dims": 0})
+        m["files"] += 1
+        m["bytes"] += len(data)
+        m["dims"] += math.prod(h["orig"])
+    for m in out.values():
+        m["bpd"] = 8.0 * m["bytes"] / m.pop("dims")
+    return out
+
+
+def check_decoded(outdir, srcs):
+    for path, arr in srcs:
+        name = os.path.splitext(os.path.basename(path))[0] + ".npy"
+        got = np.load(os.path.join(outdir, name))
+        assert np.array_equal(got, arr), f"{name} is not bit-exact"
+
+
+def save_params(model, path):
+    from finalproject_losslessimagecompression_tpu_torch.train.checkpoint import (  # noqa: E501
+        save_checkpoint,
+    )
+
+    save_checkpoint(path, {"params": model.state_dict()})
+    return path
+
+
+def phase_cli(wrappers):
+    """The serve session of the file codec CLI at full width."""
+    from finalproject_losslessimagecompression_tpu_torch.cli import codec as C
+    from finalproject_losslessimagecompression_tpu_torch.cli.train import (
+        load_config,
+    )
+    from finalproject_losslessimagecompression_tpu_torch.models import (
+        FlowCfg,
+        IDFlow,
+    )
+
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    config = os.path.join(ROOT, TRAIN_CONFIG)
+    cfg = FlowCfg.from_ref(load_config(config)["train"]["model"])
+    ckpt = save_params(perturbed(IDFlow(cfg, device="cuda", seed=0)),
+                       os.path.join(CLI_DIR, "imagenet64.ckpt"))
+    indir, outdir = os.path.join(CLI_DIR, "in"), os.path.join(CLI_DIR, "out")
+    flow_srcs = write_images(indir, [(64, 64, 3)] * 16 + [(150, 200, 3)], 3)
+    escape_srcs = write_images(os.path.join(CLI_DIR, "in2"),
+                               [(5, 6, 3), (64, 64, 3)], 4)
+    # 150x200 pads to 192x256: 3 x 4 tiles of 64x64; every other file
+    # (the 5x6 one padded) is one tile
+    tile_counts = [1] * 16 + [3 * 4]
+    tiles = sum(tile_counts)
+    # the chunk batch sizes (1, 8 and 4): one stream layout each per level
+    batches = sorted({b for n in tile_counts for b in C._chunk_sizes(n)})
+    C.TIMER.totals.clear()
+    C.TIMER.counts.clear()
+    t0 = time.time()
+    pipe = C._load_model(config, ckpt, 4096)
+    torch.cuda.synchronize()
+    startup_s = time.time() - t0
+
+    def command(verb, srcs, stored_fallback):
+        paths = [p for p, _ in srcs] if verb == "compress" else [
+            os.path.join(outdir, os.path.splitext(os.path.basename(p))[0]
+                         + ".lic") for p, _ in srcs]
+        for w in wrappers.values():
+            w.launches = 0
+        answer = io.StringIO()
+        with contextlib.redirect_stdout(io.StringIO()):  # per-file lines
+            C.serve(pipe, lines=[f"{verb} {outdir} " + " ".join(paths)],
+                    out=answer, stored_fallback=stored_fallback, ext=".npy")
+        reply = answer.getvalue().split()
+        assert reply[0] == "ok", reply
+        return {"command": verb, "files": len(srcs), "ok_s": float(reply[1]),
+                "launches": {n: w.launches for n, w in wrappers.items()}}
+
+    cmds = [command("compress", flow_srcs, False),
+            command("compress", flow_srcs, False),
+            command("decompress", flow_srcs, False)]
+    check_decoded(outdir, flow_srcs)
+
+    def expect(c, layouts):
+        """one launch of each coding kernel per stream layout per level,
+        in the command's direction only"""
+        assert c["launches"] == {
+            n: layouts * cfg.nsplit if (n in DEC) == (
+                c["command"] == "decompress") else 0
+            for n in c["launches"]}, c
+
+    for c in cmds:
+        expect(c, len(batches))
+    flow_lics = [os.path.join(outdir, os.path.splitext(os.path.basename(p))[0]
+                              + ".lic") for p, _ in flow_srcs]
+    flow_stats = lic_stats(flow_lics)
+    assert list(flow_stats) == ["flow"], flow_stats
+    # the escape on: both files are flow-coded (one-tile chunks), then the
+    # smaller container is written.  The decompress mixes those containers
+    # with one flow container of the first session, so the stored and the
+    # flow entries of one command are told apart and grouped per file.
+    mixed = escape_srcs + flow_srcs[:1]
+    cmds += [command("compress", escape_srcs, True),
+             command("decompress", mixed, True)]
+    for c in cmds[3:]:
+        expect(c, 1)
+    check_decoded(outdir, mixed)
+    esc_lics = [os.path.join(outdir, os.path.splitext(os.path.basename(p))[0]
+                             + ".lic") for p, _ in escape_srcs]
+    assert lic_stats(esc_lics[:1]).keys() <= {"stored-zlib", "stored-png"}
+    mixed_stats = lic_stats(esc_lics + flow_lics[:1])
+    assert "flow" in mixed_stats and len(mixed_stats) > 1, mixed_stats
+    warm, dec = cmds[1]["ok_s"], cmds[2]["ok_s"]
+    res = {"phase": "cli", "config": TRAIN_CONFIG, "num_streams": 4096,
+           # the stored escape is stored-png with PIL, stored-zlib without
+           "pil": importlib.util.find_spec("PIL") is not None,
+           "startup_s": startup_s, "commands": cmds,
+           "timer": C.TIMER.report(),
+           "modes": {"flow_session": flow_stats,
+                     "escape_session": lic_stats(esc_lics),
+                     "mixed_decompress": mixed_stats},
+           "chunk_batches": batches,
+           "kernel_shapes": coded_shapes(pipe.codec, batches),
+           "compress_files_per_s": len(flow_srcs) / warm,
+           "compress_tiles_per_s": tiles / warm,
+           "decompress_files_per_s": len(flow_srcs) / dec,
+           "decompress_tiles_per_s": tiles / dec,
+           "bit_exact": True}
+    emit(res)
+    return res
+
+
+def phase_residual(wrappers, batch: int = 16, queue: int = 4):
+    """ResidualCodec over configs/resflow-cond-imagenet64.yaml at full
+    width, then the same pipeline through the CLI."""
+    from finalproject_losslessimagecompression_tpu_torch.cli import codec as C
+    from finalproject_losslessimagecompression_tpu_torch.cli.train import (
+        load_config,
+    )
+    from finalproject_losslessimagecompression_tpu_torch.codec.container import (  # noqa: E501
+        pack_streams_many,
+    )
+    from finalproject_losslessimagecompression_tpu_torch.models import (
+        FlowCfg,
+        FlowCodec,
+        IDFlow,
+        ResidualCodec,
+        build_vqvae_from_ref,
+    )
+
+    config = os.path.join(ROOT, RES_CONFIG)
+    train = load_config(config)["train"]
+    cfg = FlowCfg.from_ref(train["flows"])
+    flow = perturbed(IDFlow(cfg, device="cuda", seed=0))
+    vqvae = build_vqvae_from_ref(train["vqvae"], device="cuda", seed=2).eval()
+    res = ResidualCodec(vqvae, FlowCodec(flow, num_streams=4096),
+                        tuple(train["input_size"]))
+    xs_np = images(batch, queue, seed=5)
+    xs = [torch.from_numpy(x).cuda() for x in xs_np]
+    res.decompress_many(res.compress_many(xs), fetch=True)  # warm-up
+    torch.cuda.synchronize()
+
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.time()
+    packed = res.compress_many(xs)
+    recs = res.decompress_many(packed, fetch=True)
+    wall = time.time() - t0
+    launches = {n: w.launches for n, w in wrappers.items()}
+    assert all(v == cfg.nsplit for v in launches.values()), launches
+    assert all(np.array_equal(r, x) for r, x in zip(recs, xs_np)), \
+        "residual round trip is not bit-exact"
+    numel = batch * queue * 64 * 64 * 3
+    idx_bits = sum(8 * len(i) for i, _, _ in packed)
+    res_bits = sum(FlowCodec.coded_bits(b) for _, b, _ in packed)
+
+    # phase split of one more pass, each part fenced with synchronize
+    idxs, t_vq = timed(lambda: [res._encode_idx(x) for x in xs])
+    rec, t_rec = timed(lambda: [res._rec_from_idx(i) for i in idxs])
+    per_batch, t_flow = timed(lambda: res.codec._compress_deferred_many(
+        [res._tiles(x - r) for x, r in zip(xs, rec)],
+        [res._tiles(r) for r in rec]))
+    _, t_pack = timed(lambda: (
+        pack_streams_many([e for encs, _ in per_batch for e in encs]),
+        torch.cat([i.reshape(-1) for i in idxs]).cpu()))
+    _, t_dec = timed(lambda: res.decompress_many(packed, fetch=True))
+    out = {"phase": "residual", "config": RES_CONFIG, "batch": batch,
+           "queue": queue, "bit_exact": True,
+           "images_per_s": batch * queue / wall, "wall_s": wall,
+           "real_bpd": (idx_bits + res_bits) / numel,
+           "index_bpd": idx_bits / numel, "residual_bpd": res_bits / numel,
+           "indices_per_image": int(idxs[0][0].numel()),
+           "phases_s": {"vq_encode": t_vq, "reconstruction": t_rec,
+                        "flow_encode": t_flow, "pack": t_pack,
+                        "decode": t_dec},
+           "launches": launches,
+           "streams_per_level": [res.codec._level_S(lv, batch)
+                                 for lv in range(cfg.nsplit)]}
+    emit(out)
+    profile_pass(lambda: res.decompress_many(res.compress_many(xs),
+                                             fetch=True),
+                 wall, phase="residual_profile")
+
+    # the same pipeline through the CLI, the VQ checkpoint written here
+    flow_ckpt = save_params(flow, os.path.join(CLI_DIR, "resflow.ckpt"))
+    vq_ckpt = save_params(vqvae, os.path.join(CLI_DIR, "vqvae.ckpt"))
+    srcs = write_images(os.path.join(CLI_DIR, "in_res"), [(64, 64, 3)] * 4, 6)
+    outdir = os.path.join(CLI_DIR, "out_res")
+    args = ["--config", config, "--ckpt", flow_ckpt, "--vq-ckpt", vq_ckpt,
+            "--outdir", outdir, "--no-stored-fallback", "--ext", ".npy"]
+    lics = [os.path.join(outdir, os.path.splitext(os.path.basename(p))[0]
+                         + ".lic") for p, _ in srcs]
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()):
+        C.main(["compress", "--input", *[p for p, _ in srcs]] + args)
+    runs = [{"command": "compress", "s": time.time() - t0,
+             "launches": {n: w.launches for n, w in wrappers.items()}}]
+    # the decompress in a process of its own, as a user runs it: the priors
+    # rest on the VQ decoder's and the cond convs' output being the same
+    # in both processes
+    t0 = time.time()
+    child = subprocess.run([sys.executable, "-c", CLI_CHILD, "decompress",
+                            "--input", *lics] + args, cwd=ROOT, check=True,
+                           capture_output=True, text=True)
+    runs.append({"command": "decompress", "process": "child",
+                 "s": time.time() - t0,
+                 "launches": json.loads(child.stdout.splitlines()[-1])})
+    check_decoded(outdir, srcs)
+    cli_batches = C._chunk_sizes(1)  # each 64x64 file is one tile
+    for r in runs:
+        assert r["launches"] == {
+            n: len(cli_batches) * cfg.nsplit if (n in DEC) == (
+                r["command"] == "decompress") else 0
+            for n in r["launches"]}, r
+    emit({"phase": "residual_cli", "files": len(srcs), "runs": runs,
+          "modes": lic_stats(lics), "bit_exact": True})
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    out["kernel_shapes"] = coded_shapes(res.codec, [batch] + cli_batches)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: an 8M-symbol message
 # ---------------------------------------------------------------------------
 
 
@@ -784,7 +1138,7 @@ def phase_large(depth_ns, n: int = 8 * 2**20):
 # ---------------------------------------------------------------------------
 
 
-def kernels_line(rows, e2e, train):
+def kernels_line(rows, e2e, train, cli, residual):
     head = [r for r in rows if r["S"] == 384 and not r["seeded"]][0]
     out = []
     for key, name, replaces, extra in (
@@ -801,6 +1155,11 @@ def kernels_line(rows, e2e, train):
             "launches": e2e["launches"][name] if e2e else None,
             "launches_train_eval": (train["launches_eval"][name] if train
                                     else None),
+            "launches_cli": ({c["command"] + str(i): c["launches"][name]
+                              for i, c in enumerate(cli["commands"])}
+                             if cli else None),
+            "launches_residual": (residual["launches"][name] if residual
+                                  else None),
             "max_abs_err": max(r[key]["max_abs_err"] for r in rows),
             "matches_plain": all(r[key]["max_abs_err"] == 0 for r in rows),
             "ms": h["ms"], "plain_ms": h["plain_ms"],
@@ -824,12 +1183,15 @@ def main(argv) -> int:
     smi = phase_device()
     depth_ns = phase_depth()
     rows, _, _ = phase_kernels(depth_ns)
-    e2e = train = None
+    e2e = train = cli = residual = None
     if "--quick" not in argv:
         e2e = phase_e2e()
         train = phase_train(kernel_wrappers())
+        cli = phase_cli(kernel_wrappers())
+        residual = phase_residual(kernel_wrappers())
+        path_kernels(rows, (e2e, cli, residual), depth_ns)
         rows.append(phase_large(depth_ns))
-    emit(kernels_line(rows, e2e, train))
+    emit(kernels_line(rows, e2e, train, cli, residual))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -22,8 +22,8 @@ from . import yamlite
 # trainers of the JAX package that the port does not have yet, with the
 # ROADMAP queue 1 item that ports each
 NOT_PORTED = {
-    "VQVAETrainer": "item 11 (VQ-VAE and residual pipeline)",
-    "ResidualTrainer": "item 11 (VQ-VAE and residual pipeline)",
+    "VQVAETrainer": "item 11b (VQ-VAE and residual training)",
+    "ResidualTrainer": "item 11b (VQ-VAE and residual training)",
     "TwoLevelTrainer": "item 12 (two-level pyramid)",
     "Finetuner": "item 13 (fine-tuner)",
     "FineTuner": "item 13 (fine-tuner)",

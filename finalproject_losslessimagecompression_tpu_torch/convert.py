@@ -3,6 +3,9 @@
 `params_from_flax(tree)`: a flax IDFlow parameter tree -> this package's
 `state_dict`.
 
+`vqvae_params_from_flax(tree)`: a flax VQVAE variable tree (params and,
+with BatchNorm, batch_stats) -> the state_dict of `models.VQVAE`.
+
 `params_from_flax(tree)` takes the JAX package's parameter tree as nested
 dicts of numpy arrays (what `jax.device_get(params)` returns), with or
 without its top-level "params" key.  The flax names are
@@ -10,6 +13,7 @@ without its top-level "params" key.  The flax names are
     couples_{level}_{step}/dense/layer{i}/...   coupling DenseBlocks
     priors_{level}/net/layer{i}/...             prior DenseBlocks
     .../proj/{kernel, bias}                     zero-initialised projections
+    cond_convs_{level}/{kernel, bias}           conditional flow's convs
 
 and each DenseLayer holds its four leaves in either layout: fused
 (`conv1_kernel`, `conv1_bias`, `conv3_kernel`, `conv3_bias`) or unfused
@@ -71,8 +75,63 @@ def params_from_flax(tree) -> Dict[str, torch.Tensor]:
         elif kind == "priors":
             (level,) = idx
             _block(node["net"], f"priors.{level}.net.", out)
+        elif name.startswith("cond_convs_"):
+            _conv(node, f"cond_convs.{idx[-1]}.", out)
         else:
             raise KeyError(f"unexpected IDFlow entry {name!r}")
+    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+
+
+def _conv(node, prefix: str, out, transpose: bool = False) -> None:
+    """A flax Conv (HWIO kernel -> OIHW) or ConvTranspose: flax correlates
+    the dilated input with its [h, w, in, out] kernel as it is, torch's
+    conv_transpose2d with the kernel flipped in h and w and laid out
+    [in, out, h, w]."""
+    k = np.asarray(node["kernel"], np.float32)
+    out[prefix + "weight"] = (k[::-1, ::-1].transpose(2, 3, 0, 1)
+                              if transpose else k.transpose(3, 2, 0, 1))
+    out[prefix + "bias"] = np.asarray(node["bias"], np.float32)
+
+
+# flax's automatic module names in the VQ-VAE -> the port's module lists
+_VQ_MODULES = {"Conv": "convs", "ConvTranspose": "deconvs",
+               "ResBlock": "blocks", "BatchNorm": "bns"}
+
+
+def _batch_norm(params, stats, prefix: str, out) -> None:
+    out[prefix + "weight"] = np.asarray(params["scale"], np.float32)
+    out[prefix + "bias"] = np.asarray(params["bias"], np.float32)
+    out[prefix + "running_mean"] = np.asarray(stats["mean"], np.float32)
+    out[prefix + "running_var"] = np.asarray(stats["var"], np.float32)
+
+
+def vqvae_params_from_flax(tree) -> Dict[str, torch.Tensor]:
+    """The state_dict of `models.VQVAE` from a flax VQVAE's variables
+    (`{"params": ..., "batch_stats": ...}`, or the params alone when the
+    model has no BatchNorm).  The flax names are
+
+        encoder/Conv_i, encoder/BatchNorm_i, encoder/ResBlock_i/{conv_a,
+        conv_b, bn_a, bn_b}, decoder/Conv_i, decoder/ConvTranspose_i,
+        decoder/BatchNorm_i, decoder/ResBlock_i/..., vq/codebook."""
+    params = tree.get("params", tree)
+    stats = tree.get("batch_stats", {})
+    out: Dict[str, np.ndarray] = {}
+    for part in ("encoder", "decoder"):
+        for name, node in params[part].items():
+            kind, i = name.rsplit("_", 1)
+            prefix = f"{part}.{_VQ_MODULES[kind]}.{int(i)}."
+            st = stats.get(part, {}).get(name, {})
+            if kind == "BatchNorm":
+                _batch_norm(node, st, prefix, out)
+            elif kind == "ResBlock":
+                for sub, leaf in node.items():
+                    if sub.startswith("conv"):
+                        _conv(leaf, f"{prefix}{sub}.", out)
+                    else:
+                        _batch_norm(leaf, st[sub], f"{prefix}{sub}.", out)
+            else:
+                _conv(node, prefix, out, transpose=kind == "ConvTranspose")
+    out["vq.codebook"] = np.asarray(params["vq"]["codebook"], np.float32)
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
 
 

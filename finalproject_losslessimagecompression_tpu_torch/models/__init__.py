@@ -6,7 +6,7 @@ from .config import (
     latent_shapes,
     level_plans,
 )
-from .layers import DenseBlock, DenseLayer, activation
+from .layers import DenseBlock, DenseLayer, ResBlock, activation
 from .invertible import (
     AdditiveCoupling,
     Prior,
@@ -16,6 +16,8 @@ from .invertible import (
 )
 from .idflow import IDFlow, flow_permutations, log_likelihood
 from .exact import FlowCodec
+from .vqvae import VQVAE, VectorQuantizer, build_vqvae_from_ref, vq_reinit
+from .residual_codec import ResidualCodec
 
 __all__ = [
     "CouplingCfg",
@@ -26,6 +28,7 @@ __all__ = [
     "level_plans",
     "DenseBlock",
     "DenseLayer",
+    "ResBlock",
     "activation",
     "AdditiveCoupling",
     "Prior",
@@ -36,4 +39,9 @@ __all__ = [
     "flow_permutations",
     "log_likelihood",
     "FlowCodec",
+    "ResidualCodec",
+    "VQVAE",
+    "VectorQuantizer",
+    "build_vqvae_from_ref",
+    "vq_reinit",
 ]

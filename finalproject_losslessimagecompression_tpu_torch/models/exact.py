@@ -2,16 +2,19 @@
 interleaved rANS.
 
 Decoding regenerates every prior from already-decoded data, level by level
-(nsplit-1 down to 0), interleaved with the rANS decode.
+(nsplit-1 down to 0), interleaved with the rANS decode.  A conditional flow
+takes one conditioning image per batch (`conds`); both directions compute
+its per-level features once per batch with `IDFlow.cond_features`.
 
 Bit-exactness.  Grid arithmetic (gathers, space-to-depth, adds of 1/256-grid
 values) is exact in float32.  The NN evaluations are the only risk: the
 priors must give identical (mean, logscale) at both ends, since they
 parameterise the rANS CDF, and the coupling shifts t(xa) of the forward pass
 must equal those of the inverse pass.  Both directions therefore call the
-same two functions, `IDFlow.prior_params` and `IDFlow.couple_t`, on inputs
-of the same shapes made contiguous the same way, and a codec on the card
-pins cuDNN and cuBLAS to deterministic float32 arithmetic: building a CUDA
+same functions, `IDFlow.prior_params`, `IDFlow.couple_t` and
+`IDFlow.cond_features`, on inputs of the same shapes made contiguous the
+same way, and a codec on the card pins cuDNN and cuBLAS to deterministic
+float32 arithmetic: building a CUDA
 FlowCodec sets `torch.backends.cudnn.deterministic = True`,
 `torch.backends.cudnn.benchmark = False`,
 `torch.backends.cudnn.allow_tf32 = False` and
@@ -91,8 +94,18 @@ class FlowCodec:
     # compress
     # ------------------------------------------------------------------
 
+    def _features(self, conds, n: int):
+        """Per batch, the per-level conditioning features (None for an
+        unconditional flow)."""
+        if not self.cfg.conditional:
+            return [self.model._conds(None)] * n
+        if conds is None or len(conds) != n:
+            raise ValueError("a conditional flow needs one cond per batch")
+        return [self.model._conds(torch.as_tensor(
+            c, dtype=torch.float32, device=self.device)) for c in conds]
+
     @torch.no_grad()
-    def _compress_deferred_many(self, xs):
+    def _compress_deferred_many(self, xs, conds=None):
         """Queue the whole encode of a queue of batches without a host
         sync, level-major; returns [(per-level EncodedStreams, info)] per
         batch.
@@ -109,6 +122,7 @@ class FlowCodec:
         folds = [1 if cfg.batch_squeeze else info["batch"] for info in infos]
         if cfg.batch_squeeze:
             xs = [fold_batch(x, cfg.batch_squeeze) for x in xs]
+        feats = self._features(conds, len(xs))
         encs: List[List] = [[] for _ in xs]
         seeds = [None] * len(xs)
         for level, p in enumerate(self.plans):
@@ -120,7 +134,7 @@ class FlowCodec:
                 z, keep = (x, None) if last else (x[..., : p.z_ch],
                                                   x[..., p.z_ch:])
                 mean, logscale = model.prior_params(z if last else keep,
-                                                    level)
+                                                    level, feats[b][level])
                 items.append((z, mean, logscale))
                 xs[b] = keep
             level_encs = encode_tensors_deferred(
@@ -136,15 +150,15 @@ class FlowCodec:
                     enc.donated = S_next
         return list(zip(encs, infos))
 
-    def compress(self, x) -> Tuple[List[bytes], dict]:
+    def compress(self, x, cond=None) -> Tuple[List[bytes], dict]:
         """Encode an image batch (NHWC, values on the 1/256 grid) to
         per-level containers.  Returns (blobs, info)."""
-        return self.compress_many([x])[0]
+        return self.compress_many([x], None if cond is None else [cond])[0]
 
-    def compress_many(self, xs):
+    def compress_many(self, xs, conds=None):
         """Serving encode: queue every batch, then pack every container with
         one host sync.  Returns a list of (blobs, info)."""
-        per_batch = self._compress_deferred_many(xs)
+        per_batch = self._compress_deferred_many(xs, conds)
         blobs = pack_streams_many([e for encs, _ in per_batch for e in encs])
         out, pos = [], 0
         for encs, info in per_batch:
@@ -175,7 +189,7 @@ class FlowCodec:
         return [e.to(self.device) for e in encs]
 
     @torch.no_grad()
-    def _decompress_deferred_many(self, packed):
+    def _decompress_deferred_many(self, packed, conds=None):
         """Queue the whole decode of [(blobs, info), ...], level-major;
         returns (xs, oks) with oks the per-level state-invariant flags,
         still on the device."""
@@ -184,6 +198,7 @@ class FlowCodec:
         folds = [1 if cfg.batch_squeeze else b for b in batches]
         encs = [self._unpack_checked(blobs, fold)
                 for (blobs, _), fold in zip(packed, folds)]
+        feats = self._features(conds, len(packed))
         xs = [None] * len(packed)
         prev_lo = [None] * len(packed)
         oks = []
@@ -193,8 +208,8 @@ class FlowCodec:
             params = [
                 model.prior_params(
                     torch.zeros((fold, p.h, p.w, p.z_ch), device=self.device)
-                    if last else x, level)
-                for fold, x in zip(folds, xs)
+                    if last else x, level, f[level])
+                for fold, x, f in zip(folds, xs, feats)
             ]
             # each container's donated hole is restored from the previous
             # level's final lo limbs; the check skips this level's own
@@ -236,19 +251,21 @@ class FlowCodec:
             pos += x.numel()
         return out
 
-    def decompress(self, blobs: Sequence[bytes], info: dict,
+    def decompress(self, blobs: Sequence[bytes], info: dict, cond=None,
                    fetch: bool = False):
         """Decode containers back to the exact input batch.  fetch=True
         returns a host numpy array, copied in the same transfer as the
         state-invariant check; the default returns a device tensor."""
-        return self.decompress_many([(blobs, info)], fetch=fetch)[0]
+        return self.decompress_many([(blobs, info)],
+                                    None if cond is None else [cond],
+                                    fetch=fetch)[0]
 
-    def decompress_many(self, packed, fetch: bool = False):
-        """Serving decode of [(blobs, info), ...]: queue every batch's
-        decode, level-major, then verify all state invariants with one host
-        sync (fetch=True also returns the batches, as numpy, in that
-        sync)."""
-        xs, oks = self._decompress_deferred_many(packed)
+    def decompress_many(self, packed, conds=None, fetch: bool = False):
+        """Serving decode of [(blobs, info), ...] (with one cond per batch
+        for a conditional flow): queue every batch's decode, level-major,
+        then verify all state invariants with one host sync (fetch=True
+        also returns the batches, as numpy, in that sync)."""
+        xs, oks = self._decompress_deferred_many(packed, conds)
         if fetch:
             return self._fetch(xs, oks)
         self._check_got([bool(torch.stack(oks).all())])

@@ -1,9 +1,12 @@
-"""Multi-scale integer discrete flow (IDFlow), unconditional.
+"""Multi-scale integer discrete flow (IDFlow) with optional conditioning.
 
 Per split level: squeeze (space-to-depth) -> nflows x [channel permute ->
 additive coupling] -> final permute -> factor out z (half the channels) with
 a discretized-logistic prior predicted from the kept half.  The last level
-factors everything, and its prior sees zeros (learned constants).
+factors everything, and its prior sees zeros (learned constants).  The
+conditional flow (ConditionalFlows) concatenates a per-level downscaled
+conditioning image to every prior's input: a chain of 4x4 stride-2 convs
+(`conv_for_cond`) or repeated space-to-depth.
 
 Public tensors are NHWC, as in the JAX package; the DenseBlocks compute in
 NCHW inside.  The model lives on the card unless the caller asks for the
@@ -28,6 +31,7 @@ from .invertible import (
     inverse_permutation,
     permutation,
 )
+from .layers import flax_conv
 
 
 def resolve_device(device=None) -> torch.device:
@@ -71,15 +75,13 @@ def unfold_batch(x: torch.Tensor, channels: int) -> torch.Tensor:
 
 
 class IDFlow(nn.Module):
-    """The unconditional IDFlow.  Weights are drawn from a torch.Generator
-    seeded with `seed` (lecun-normal convs, zero projections, as in flax);
-    load trained or converted weights with `load_state_dict`."""
+    """The IDFlow (ConditionalFlows when cfg.conditional).  Weights are
+    drawn from a torch.Generator seeded with `seed` (lecun-normal convs,
+    zero projections, as in flax); load trained or converted weights with
+    `load_state_dict`."""
 
     def __init__(self, cfg: FlowCfg, device=None, seed: int = 0):
         super().__init__()
-        if cfg.conditional:
-            raise NotImplementedError(
-                "the conditional flow is not ported yet")
         self.cfg = cfg
         self.plans = level_plans(cfg)
         gen = torch.Generator().manual_seed(seed)
@@ -91,8 +93,14 @@ class IDFlow(nn.Module):
                 for _ in range(cfg.nflows)
             ))
             last = level == cfg.nsplit - 1
-            prior_in = p.z_ch if last else p.keep_ch
+            prior_in = (p.z_ch if last else p.keep_ch) + p.cond_ch
             self.priors.append(Prior(prior_in, p.z_ch, cfg.prior_nn, gen=gen))
+        if cfg.conditional and cfg.conv_for_cond:
+            # level l's features come from level l - 1's, as in flax
+            ins = [cfg.cond_channels] + [p.cond_ch for p in self.plans[:-1]]
+            self.cond_convs = nn.ModuleList(
+                flax_conv(c, p.cond_ch, 4, 2, 1, gen)
+                for c, p in zip(ins, self.plans))
         self.a_chs = [coupling_split(p.channel, cfg.couple.split)[0]
                       for p in self.plans]
         self.perms = flow_permutations(cfg)
@@ -128,13 +136,35 @@ class IDFlow(nn.Module):
         """Rounded coupling shift for (level, step)."""
         return self.couples[level][step].t(xa)
 
-    def prior_params(self, ref: torch.Tensor, level: int):
+    def prior_params(self, ref: torch.Tensor, level: int, cond_l=None):
         """(mean, logscale) for level's z.  `ref` is the kept half for
         non-last levels and any z-shaped tensor at the last level (only its
-        shape is used: the prior there sees zeros)."""
+        shape is used: the prior there sees zeros).  A conditional flow
+        concatenates `cond_l`, the level's conditioning features, on the
+        channel axis."""
         last = level == self.cfg.nsplit - 1
         h = torch.zeros_like(ref) if last else ref
+        if self.cfg.conditional:
+            h = torch.cat([h, cond_l], dim=-1)
         return self.priors[level](h)
+
+    def cond_features(self, cond: torch.Tensor) -> List[torch.Tensor]:
+        """Per-level NHWC conditioning features of an NHWC image: each
+        level's from the previous level's, by a 4x4 stride-2 conv
+        (conv_for_cond) or by space_to_depth."""
+        feats, c = [], cond
+        for level in range(self.cfg.nsplit):
+            if self.cfg.conv_for_cond:
+                c = self.cond_convs[level](
+                    c.permute(0, 3, 1, 2).contiguous()).permute(0, 2, 3, 1)
+            else:
+                c = space_to_depth(c, self.cfg.extend_scale)
+            feats.append(c)
+        return feats
+
+    def _conds(self, cond):
+        return self.cond_features(cond) if self.cfg.conditional else \
+            [None] * self.cfg.nsplit
 
     # -- one level --------------------------------------------------------
 
@@ -157,12 +187,14 @@ class IDFlow(nn.Module):
 
     # -- main paths -------------------------------------------------------
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, cond=None):
         """Forward transform -> (latents, means, logscales) per split level,
-        all NHWC."""
+        all NHWC.  `cond` is the conditioning image of a conditional flow
+        (not folded by batch_squeeze, as in the JAX package)."""
         cfg = self.cfg
         if cfg.batch_squeeze:
             x = fold_batch(x, cfg.batch_squeeze)
+        conds = self._conds(cond)
         latents, means, logscales = [], [], []
         for level, p in enumerate(self.plans):
             x = space_to_depth(x, cfg.extend_scale)
@@ -172,7 +204,7 @@ class IDFlow(nn.Module):
             else:
                 z, keep = x, x
             mean, logscale = self.prior_params(
-                keep if level < cfg.nsplit - 1 else z, level)
+                keep if level < cfg.nsplit - 1 else z, level, conds[level])
             latents.append(z)
             means.append(mean)
             logscales.append(logscale)
@@ -180,7 +212,8 @@ class IDFlow(nn.Module):
         return latents, means, logscales
 
     def inverse_from_latents(self, latents: Sequence[torch.Tensor]):
-        """Invert exact latents back to the input."""
+        """Invert exact latents back to the input (the couplings see no
+        conditioning, so a conditional flow needs no `cond` here)."""
         cfg = self.cfg
         x = None
         for level in range(cfg.nsplit - 1, -1, -1):
@@ -192,17 +225,19 @@ class IDFlow(nn.Module):
             x = unfold_batch(x, cfg.C)
         return x
 
-    def sample_from_noise(self, noises: Sequence[torch.Tensor]):
+    def sample_from_noise(self, noises: Sequence[torch.Tensor], cond=None):
         """Map standard-logistic noise latents (NHWC, one per level) through
         the priors and the inverse flow: at each level, from nsplit-1 down,
         z = round(noise * exp(logscale) + mean) with the prior of the data
         generated so far."""
         cfg = self.cfg
+        conds = self._conds(cond)
         x = None
         for level in range(cfg.nsplit - 1, -1, -1):
             noise = noises[level]
             last = level == cfg.nsplit - 1
-            mean, logscale = self.prior_params(noise if last else x, level)
+            mean, logscale = self.prior_params(noise if last else x, level,
+                                               conds[level])
             z = round_to_grid(noise * torch.exp(logscale) + mean, cfg.nbits)
             x = z if last else torch.cat([z, x], dim=-1)
             x = depth_to_space(self.flow_level_inverse(x, level),

@@ -3,6 +3,9 @@
 - DenseLayer / DenseBlock: 1x1 conv -> 3x3 conv -> activation with DenseNet
   concatenation growth; the block's final 1x1 projection is zero-initialised
   so couplings and priors start as identity / zero.
+- flax_conv / BatchNorm / ResBlock: convolutions initialised as flax's
+  (lecun-normal kernel, zero bias), flax's BatchNorm, and the VQ-VAE's
+  residual block.
 
 The parameters keep the JAX package's four leaves per layer
 (`conv1_kernel`, `conv1_bias`, `conv3_kernel`, `conv3_bias`), stored OIHW.
@@ -132,3 +135,71 @@ class DenseBlock(nn.Module):
             x = layer(x)
         out = F.conv2d(x, self.proj.weight.to(dt), self.proj.bias.to(dt))
         return out.to(torch.float32)
+
+
+def flax_conv(in_ch: int, out_ch: int, k: int, stride: int = 1,
+              padding: int = 0, gen: torch.Generator | None = None,
+              transpose: bool = False) -> nn.Module:
+    """nn.Conv2d (or nn.ConvTranspose2d) initialised as a flax conv:
+    lecun-normal kernel over fan_in = in_ch * k * k, zero bias."""
+    gen = gen if gen is not None else torch.Generator().manual_seed(0)
+    cls = nn.ConvTranspose2d if transpose else nn.Conv2d
+    conv = cls(in_ch, out_ch, k, stride=stride, padding=padding)
+    with torch.no_grad():
+        conv.weight.copy_(_lecun_normal(conv.weight.shape, in_ch * k * k,
+                                        gen))
+        conv.bias.zero_()
+    return conv
+
+
+class BatchNorm(nn.Module):
+    """flax's BatchNorm over the channels of an NCHW tensor: epsilon 1e-5,
+    running averages updated as ra = 0.99 ra + 0.01 batch with the biased
+    batch variance (torch's BatchNorm2d would store the unbiased one).
+    `train=False` normalises with the running averages."""
+
+    def __init__(self, ch: int, momentum: float = 0.99, eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(ch))
+        self.bias = nn.Parameter(torch.zeros(ch))
+        self.register_buffer("running_mean", torch.zeros(ch))
+        self.register_buffer("running_var", torch.ones(ch))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            mean = x.mean(dim=(0, 2, 3))
+            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean,
+                              min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_((1 - m) * mean)
+                self.running_var.mul_(m).add_((1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None, None]) * inv[:, None, None] + \
+            self.bias[:, None, None]
+
+
+class ResBlock(nn.Module):
+    """3x3 conv -> ReLU -> 3x3 conv, ReLU after the residual add; optional
+    BatchNorm after each conv.  NCHW."""
+
+    def __init__(self, ch: int, batch_norm: bool = False,
+                 gen: torch.Generator | None = None):
+        super().__init__()
+        self.conv_a = flax_conv(ch, ch, 3, padding=1, gen=gen)
+        self.conv_b = flax_conv(ch, ch, 3, padding=1, gen=gen)
+        self.batch_norm = batch_norm
+        if batch_norm:
+            self.bn_a, self.bn_b = BatchNorm(ch), BatchNorm(ch)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        h = F.relu(self.conv_a(x))
+        if self.batch_norm:
+            h = self.bn_a(h, train)
+        h = self.conv_b(h)
+        if self.batch_norm:
+            h = self.bn_b(h, train)
+        return F.relu(x + h)

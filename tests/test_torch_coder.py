@@ -111,10 +111,11 @@ def test_port_imports_no_jax(tmp_path):
             "codec.cuda_rans", "codec.container", "codec.coder", "ops", "ops.rounding",
             "ops.reshape", "ops.dlogistic", "models", "models.config",
             "models.layers", "models.invertible", "models.idflow",
-            "models.exact", "convert", "registry", "data", "data.datasets",
+            "models.exact", "models.vqvae", "models.residual_codec",
+            "convert", "registry", "data", "data.datasets",
             "data.loader", "train", "train.optim", "train.metrics",
             "train.checkpoint", "train.trainer", "utils.profiling",
-            "cli.yamlite", "cli.train",
+            "cli.yamlite", "cli.train", "cli.codec",
         )
     ] + [PORT, "chip_smoke", "chip_decode_variants"]
     blocked = ("yaml", "PIL", "msgpack", "optax", "tensorboard",
