@@ -73,12 +73,41 @@ Phases, each printing one JSON line:
             4 files through the CLI with this config (`residual_cli`), the
             VQ checkpoint written by the phase: compressed in this process
             and decompressed in a new one, bit-exact.
+8. vqvae_train  configs/vqvae_for_imagenet64_reinit.yaml at full width
+            through cli.train (VQ-VAE 8192 x 512, hidden dims 128/256/512,
+            8 ResBlocks, Binomial, Adam 1e-4, batch 32) on NaturalSynthetic
+            64x64x3: 6 steps with the dead-code reinit's interval cut to 2
+            so that it fires, eval of one batch, checkpoint and resume.
+            Step time, images/s, peak memory, codewords replaced.
+9. residual_train  configs/resflow-cond-imagenet64.yaml at full width
+            through cli.train, its VQ-VAE the checkpoint phase 8 wrote,
+            projections perturbed: 4 steps at batch 4, eval of one batch
+            coded for real through ResidualCodec (0 errors, one launch of
+            each kernel per level), MFU, peak memory, resume; then
+            cli.make_res_data on two batches (residual + reconstruction
+            is the data exactly, the reconstruction on the 1/256 grid).
+10. twolevel configs/config_twolevel.yaml's model at full width (215x178
+            padded to 216x184, rough flow 27x23, fine flow over 621 8x8
+            tiles per image, DenseBlocks growth 512 depth 8, nflows 12),
+            seeded weights, projections perturbed: TwoLevelCodec
+            compress_many / decompress_many(fetch=True) on a queue of 2
+            batches of 4 NaturalSynthetic images, bit-exact, one launch of
+            each kernel per sub-flow; then `twolevel_profile`.
+11. twolevel_train  the same config through cli.train at batch 4: 3 steps,
+            eval of one batch coded through TwoLevelCodec (0 errors),
+            FLOPs, MFU, peak memory, samples at four temperatures, resume.
+12. twolevel_cli  phase 10's model through the file CLI: two 215x178 files
+            and a 300x200 one (4 tiles, one chunk) in a serve session,
+            bit-exact, one launch of each kernel per sub-flow per chunk
+            size.  Phases 8-12 write under logs/chip_smoke_pipelines,
+            removed at the end.
    paths    phase 3's kernel checks at every other (S, k, seeded) shape
-            that phases 4, 6 and 7 coded with (each codec's own stream
-            policy over its batch sizes: the CLI's chunks of 1, 8 and 4
+            that phases 4, 6, 7, 9, 10 and 12 coded with (each codec's own
+            stream policy over its batch sizes: the CLI's chunks of 1, 8
+            and 4 tiles, the two-level sub-flows' rough images and fine
             tiles), so every launch shape of every path is held against
             the plain coder.
-8. large    an 8M-symbol message (S=8192, k=1024): the kernels against their
+13. large   an 8M-symbol message (S=8192, k=1024): the kernels against their
             plain versions as in phase 3, then the whole encode and decode
             timed, bit-exact.
 
@@ -672,6 +701,15 @@ TRAIN_CONFIG = "configs/imagenet64.yaml"
 TRAIN_DIR = os.path.join(ROOT, "logs", "chip_smoke_train")
 
 
+def natural_loader(size, batch, length, seed, train):
+    """A cached NaturalSynthetic loader config of [H, W, 3] images (the
+    repository holds no ImageNet64 or CelebA)."""
+    return {"name": "CustomDataLoader", "batch_size": batch, "nbits": 8,
+            "train": train, "shuffle": train, "cache": True,
+            "dataset": {"name": "NaturalSynthetic", "size": [*size, 3],
+                        "length": length, "seed": seed}}
+
+
 def train_config():
     """configs/imagenet64.yaml (read by the port's reader) with the two
     dataloaders on NaturalSynthetic and the run cut to 8 steps."""
@@ -681,15 +719,10 @@ def train_config():
     )
 
     config = load_config(os.path.join(ROOT, TRAIN_CONFIG))
-
-    def loader(length, seed, train):
-        return {"name": "CustomDataLoader", "batch_size": 16, "nbits": 8,
-                "train": train, "shuffle": train, "cache": True,
-                "dataset": {"name": "NaturalSynthetic", "size": [64, 64, 3],
-                            "length": length, "seed": seed}}
-
-    config["train"]["train_dataloader"] = loader(128, 1, True)
-    config["train"]["test_dataloader"] = loader(16, 0, False)
+    config["train"]["train_dataloader"] = natural_loader((64, 64), 16, 128, 1,
+                                                         True)
+    config["train"]["test_dataloader"] = natural_loader((64, 64), 16, 16, 0,
+                                                        False)
     return apply_overrides(config, [
         "train.max_step=8", "train.evaluate_interval=8",
         "train.save_interval=8", "train.max_eval_batches=1",
@@ -699,8 +732,8 @@ def train_config():
     ])
 
 
-def logged(tag):
-    with open(os.path.join(TRAIN_DIR, "log", "metrics.jsonl")) as f:
+def logged(tag, log_dir=os.path.join(TRAIN_DIR, "log")):
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     return [(r["step"], r["value"]) for r in recs if r["tag"] == tag]
 
@@ -715,6 +748,14 @@ def same_state(a, b) -> bool:
             and all(sa["state"][i][k].device == sb["state"][i][k].device
                     and torch.equal(sa["state"][i][k], sb["state"][i][k])
                     for i in sa["state"] for k in sa["state"][i]))
+
+
+def fill_caches(t):
+    """Data generation is set-up: fill a trainer's loader caches before the
+    timed steps."""
+    for ds in (t.trainloader.dataset, t.testloader.dataset):
+        for i in range(len(ds)):
+            ds[i]  # noqa: B018 (fills the cache)
 
 
 def phase_train(wrappers):
@@ -732,10 +773,7 @@ def phase_train(wrappers):
     config = train_config()
     t = build_trainer(config)
     cfg, K, batch = t.cfg, t.steps_per_dispatch, t.trainloader.batch_size
-    # data generation is set-up: fill the caches before the timed steps
-    for ds in (t.trainloader.dataset, t.testloader.dataset):
-        for i in range(len(ds)):
-            ds[i]  # noqa: B018 (fills the cache)
+    fill_caches(t)
     fixed = t._to_device(next(iter(t.testloader)))
     bpd_before = float(t.eval_step(fixed)[0]) / LN2
     torch.cuda.synchronize()
@@ -1096,7 +1134,416 @@ def phase_residual(wrappers, batch: int = 16, queue: int = 4):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: an 8M-symbol message
+# phases 8-12: VQ-VAE and residual training, the two-level pyramid
+# ---------------------------------------------------------------------------
+
+VQ_CONFIG = "configs/vqvae_for_imagenet64_reinit.yaml"
+TL_CONFIG = "configs/config_twolevel.yaml"
+# the phases' checkpoints, logs and files, removed at the end
+PIPE_DIR = os.path.join(ROOT, "logs", "chip_smoke_pipelines")
+
+
+def launch_counts(wrappers):
+    return {n: w.launches for n, w in wrappers.items()}
+
+
+def reset_launches(wrappers):
+    for w in wrappers.values():
+        w.launches = 0
+
+
+def trained(t, wrappers):
+    """t.train() from zeroed launch counts and peak memory: (wall seconds,
+    launches, peak GB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(wrappers)
+    t0 = time.time()
+    t.train()
+    torch.cuda.synchronize()
+    return (time.time() - t0, launch_counts(wrappers),
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def one_step_flops(t, loss_of_batch):
+    """FLOPs of one training step's forward and backward (FlopCounterMode;
+    the optimizer's elementwise update is not counted), on the trainer's
+    next train batch, leaving the parameters as they were."""
+    from finalproject_losslessimagecompression_tpu_torch.utils.profiling import (  # noqa: E501
+        step_flops,
+    )
+
+    batch = torch.from_numpy(np.asarray(next(t.trainloader))).cuda()
+    _, flops = step_flops(lambda: loss_of_batch(batch).backward())
+    t.optimizer.zero_grad()
+    return flops
+
+
+def mfu(flops, step_s):
+    from finalproject_losslessimagecompression_tpu_torch.utils.profiling import (  # noqa: E501
+        device_peak_tflops,
+    )
+
+    peak, name = device_peak_tflops("cuda", "float32")
+    achieved = flops / step_s / 1e12
+    return {"flops_per_step": flops, "achieved_tflops": achieved,
+            "mfu_pct": 100.0 * achieved / peak if peak else None,
+            "mfu_peak": name}
+
+
+def resumed_equal(build_trainer, config, t, key):
+    """A trainer built from the saved checkpoint (`key` of the train
+    config's model subtree names it) equals t: params, optimizer state,
+    step."""
+    config["train"][key]["load_path"] = t.save_path
+    r = build_trainer(config)
+    equal = same_state(t, r)
+    if hasattr(t, "counts"):
+        equal = equal and torch.equal(t.counts, r.counts)
+    return equal
+
+
+def phase_vqvae_train(wrappers, steps: int = 6):
+    """configs/vqvae_for_imagenet64_reinit.yaml at full width through
+    cli.train: `steps` steps at batch 32 with the dead-code reinit every
+    time the counts pass 2, eval of one batch, checkpoint and resume."""
+    from finalproject_losslessimagecompression_tpu_torch.cli.train import (
+        apply_overrides,
+        build_trainer,
+        load_config,
+    )
+
+    d = os.path.join(PIPE_DIR, "vqvae")
+    config = load_config(os.path.join(ROOT, VQ_CONFIG))
+    batch = config["train"]["train_dataloader"]["batch_size"]
+    config["train"]["train_dataloader"] = natural_loader(
+        (64, 64), batch, steps * batch, 11, True)
+    config["train"]["test_dataloader"] = natural_loader((64, 64), batch,
+                                                        batch, 12, False)
+    apply_overrides(config, [
+        f"train.max_step={steps}", f"train.evaluate_interval={steps}",
+        f"train.save_interval={steps}", "train.max_eval_batches=1",
+        "train.log_every=1", "train.model.vectorquantizer.reinit_interval=2",
+        f"train.save_path={d}/vqvae.ckpt", f"train.writer_path={d}/log"])
+    t = build_trainer(config)
+    fill_caches(t)
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        wall, launches, peak_gb = trained(t, wrappers)
+    log = os.path.join(d, "log")
+    losses = [v for _, v in logged("train loss", log)]
+    assert len(losses) == steps and all(map(math.isfinite, losses)), losses
+    replaced = int(t.replaced)
+    assert replaced > 0, "the dead-code reinit did not fire"
+    step_s = statistics.median(v for _, v in logged("step time s", log))
+    test_bpd = logged("test bpd", log)[-1][1]
+    assert math.isfinite(test_bpd)
+    assert all(v == 0 for v in launches.values()), launches
+    equal = resumed_equal(build_trainer, config, t, "model")
+    assert equal, "a resumed VQ-VAE trainer differs from the saved one"
+    res = {"phase": "vqvae_train", "config": VQ_CONFIG, "batch": batch,
+           "steps": t.step, "wall_s": wall, "step_s": step_s,
+           "train_images_per_s": batch / step_s, "peak_mem_gb": peak_gb,
+           "codewords_replaced": replaced,
+           "reinit_reports": out.getvalue().count("vq re-init"),
+           "train_bpd": [v for _, v in logged("train bpd", log)],
+           "test_bpd": test_bpd, "resume_equal": equal}
+    emit(res)
+    return res, t.save_path
+
+
+def phase_residual_train(wrappers, vq_ckpt: str, steps: int = 4):
+    """configs/resflow-cond-imagenet64.yaml at full width through
+    cli.train, its VQ-VAE the checkpoint phase vqvae_train wrote: `steps`
+    steps at batch 4, eval of one batch with real coding through
+    ResidualCodec, checkpoint and resume; then cli.make_res_data on two
+    batches."""
+    from finalproject_losslessimagecompression_tpu_torch.cli.make_res_data import (  # noqa: E501
+        make_res_data,
+    )
+    from finalproject_losslessimagecompression_tpu_torch.cli.train import (
+        apply_overrides,
+        build_trainer,
+        load_config,
+    )
+    from finalproject_losslessimagecompression_tpu_torch.registry import (
+        DATALOADERS,
+        build,
+    )
+
+    d = os.path.join(PIPE_DIR, "residual")
+    config = load_config(os.path.join(ROOT, RES_CONFIG))
+    batch = config["train"]["train_dataloader"]["batch_size"]
+    config["train"]["train_dataloader"] = natural_loader(
+        (64, 64), batch, 4 * batch, 13, True)
+    config["train"]["test_dataloader"] = natural_loader((64, 64), batch,
+                                                        batch, 14, False)
+    apply_overrides(config, [
+        f"train.max_step={steps}", f"train.evaluate_interval={steps}",
+        f"train.save_interval={steps}", "train.max_eval_batches=1",
+        "train.log_every=1", "train.test_coding=true",
+        f"train.vqvae.checkpoint={vq_ckpt}",
+        f"train.save_path={d}/resflow.ckpt", f"train.writer_path={d}/log"])
+    t = build_trainer(config)
+    perturbed(t.model, seed=15)
+    fill_caches(t)
+    flops = one_step_flops(t, lambda b: t.loss_fn(*t._prepare(b)[:2])[0])
+    wall, launches, peak_gb = trained(t, wrappers)
+    log = os.path.join(d, "log")
+    nsplit = t.cfg.nsplit
+    errors = logged("coding errors", log)[-1][1]
+    assert errors == 0, errors
+    # training launches no kernel; the eval codes one batch through
+    # ResidualCodec, one launch of each kernel per level
+    assert all(v == nsplit for v in launches.values()), launches
+    step_s = statistics.median(v for _, v in logged("step time s", log))
+    equal = resumed_equal(build_trainer, config, t, "flows")
+    assert equal, "a resumed residual trainer differs from the saved one"
+
+    # cli.make_res_data on two batches of the train split
+    out = os.path.join(d, "res_data.npz")
+    make_res_data(config, out, max_batches=2, split="train_dataloader")
+    npz = np.load(out)
+    loader = build(DATALOADERS, config["train"]["train_dataloader"])
+    data = np.concatenate([next(loader), next(loader)])
+    res_data_exact = bool(np.array_equal(
+        npz["residual"] + npz["reconstruction"], data))
+    on_grid = bool(np.array_equal(np.round(npz["reconstruction"] * 256),
+                                  npz["reconstruction"] * 256))
+    assert res_data_exact and on_grid, (res_data_exact, on_grid)
+    tiles = batch * (64 // t.cfg.H) * (64 // t.cfg.W)
+    res = {"phase": "residual_train", "config": RES_CONFIG, "batch": batch,
+           "steps": t.step, "wall_s": wall, "step_s": step_s,
+           "train_images_per_s": batch / step_s, **mfu(flops, step_s),
+           "peak_mem_gb": peak_gb,
+           "train_bpd": [v for _, v in logged("train bpd", log)],
+           "test_bpd": logged("test bpd", log)[-1][1],
+           "real_bpd": logged("real bpd", log)[-1][1],
+           "coding_errors": int(errors), "launches_eval": launches,
+           "resume_equal": equal,
+           "make_res_data": {"images": int(data.shape[0]),
+                             "residual_plus_reconstruction_exact":
+                             res_data_exact, "reconstruction_on_grid":
+                             on_grid},
+           "kernel_shapes": coded_shapes(t.codec, [tiles])}
+    emit(res)
+    return res
+
+
+def twolevel_images(n: int, seed: int):
+    """n NaturalSynthetic 215x178x3 images on the 1/256 grid."""
+    from finalproject_losslessimagecompression_tpu_torch.data.datasets import (  # noqa: E501
+        NaturalSynthetic,
+    )
+
+    ds = NaturalSynthetic(size=(215, 178, 3), length=n, seed=seed)
+    return np.stack([np.round(ds[i] * 256) / np.float32(256)
+                     for i in range(n)]).astype(np.float32)
+
+
+def twolevel_shapes(codec, batches):
+    """Every (S, k, seeded) a TwoLevelCodec codes batches of these sizes
+    with: both sub-flows' stream policies."""
+    per = (codec.Hc // codec.cfg.fine.H) * (codec.Wc // codec.cfg.fine.W)
+    return coded_shapes(codec.rough_codec, batches) + coded_shapes(
+        codec.fine_codec, [b * per for b in batches])
+
+
+def phase_twolevel(wrappers, batch: int = 4, queue: int = 2):
+    """TwoLevelCodec over configs/config_twolevel.yaml's model at full
+    width (seeded weights, projections perturbed): compress_many then
+    decompress_many(fetch=True) on a queue of `queue` batches of `batch`
+    215x178 images, bit-exact, one launch of each kernel per sub-flow; then
+    a torch.profiler pass.  Returns the result and the model."""
+    from finalproject_losslessimagecompression_tpu_torch.cli.train import (
+        load_config,
+    )
+    from finalproject_losslessimagecompression_tpu_torch.models import (
+        TwoLevelCfg,
+        TwoLevelCodec,
+        TwoLevelFlow,
+    )
+    from finalproject_losslessimagecompression_tpu_torch.models.idflow import (  # noqa: E501
+        log_likelihood,
+    )
+    from finalproject_losslessimagecompression_tpu_torch.models.twolevel import (  # noqa: E501
+        twolevel_bpd,
+    )
+
+    cfg = TwoLevelCfg.from_ref(load_config(os.path.join(ROOT, TL_CONFIG))[
+        "train"]["model"])
+    model = perturbed(TwoLevelFlow(cfg, device="cuda", seed=0))
+    codec = TwoLevelCodec(model, num_streams=4096)
+    imgs = twolevel_images(batch * queue, 16)
+    xs = [torch.from_numpy(imgs[i * batch:(i + 1) * batch]).cuda()
+          for i in range(queue)]
+    codec.decompress_many(codec.compress_many(xs), fetch=True)  # warm-up
+    torch.cuda.synchronize()
+
+    reset_launches(wrappers)
+    packed, t_enc = timed(lambda: codec.compress_many(xs))
+    recs, t_dec = timed(lambda: codec.decompress_many(packed, fetch=True))
+    launches = launch_counts(wrappers)
+    # one launch of each kernel per (sub-flow, level)
+    nl = cfg.rough.nsplit + cfg.fine.nsplit
+    assert all(v == nl for v in launches.values()), launches
+    assert all(np.array_equal(r, imgs[i * batch:(i + 1) * batch])
+               for i, r in enumerate(recs)), "two-level round trip differs"
+    with torch.no_grad():
+        (rl, rm, rs), (fl, fm, fs) = model(xs[0])
+        lr = -log_likelihood(cfg.rough, rl, rm, rs)[0].mean()
+        lf = -log_likelihood(cfg.fine, fl, fm, fs)[0].mean()
+    bpd1, bpd2 = float(lr) / math.log(2.0), float(lf) / math.log(2.0)
+    wall = t_enc + t_dec
+    nb = len(packed[0][0])
+    res = {"phase": "twolevel", "config": TL_CONFIG, "batch": batch,
+           "queue": queue, "geometry": {"image": [cfg.H, cfg.W],
+                                        "coded": [codec.Hc, codec.Wc],
+                                        "rough": [cfg.rough.H, cfg.rough.W],
+                                        "fine_tiles_per_image":
+                                        (codec.Hc // cfg.fine.H)
+                                        * (codec.Wc // cfg.fine.W)},
+           "bit_exact": True, "images_per_s": batch * queue / wall,
+           "encode_s": t_enc, "decode_s": t_dec,
+           "real_bpd": float(np.mean([codec.real_bpd(b, i)
+                                      for b, i in packed])),
+           "rough_bytes": sum(len(b) for p in packed
+                              for b in p[0][:cfg.rough.nsplit]),
+           "fine_bytes": sum(len(b) for p in packed
+                             for b in p[0][cfg.rough.nsplit:]),
+           "containers_per_batch": nb,
+           "analytic_bpd": twolevel_bpd(cfg, bpd1, bpd2),
+           "analytic_bpd_rough": bpd1, "analytic_bpd_fine": bpd2,
+           "launches": launches,
+           "kernel_shapes": twolevel_shapes(codec, [batch])}
+    emit(res)
+    profile_pass(lambda: codec.decompress_many(codec.compress_many(xs),
+                                               fetch=True),
+                 wall, phase="twolevel_profile")
+    return res, model
+
+
+def phase_twolevel_train(wrappers, steps: int = 3):
+    """configs/config_twolevel.yaml at full width through cli.train (batch
+    4, the fine flow's activations recomputed in the backward pass):
+    `steps` steps, eval of one batch with real coding through
+    TwoLevelCodec, samples at four temperatures, checkpoint and resume."""
+    from finalproject_losslessimagecompression_tpu_torch.cli.train import (
+        apply_overrides,
+        build_trainer,
+        load_config,
+    )
+
+    d = os.path.join(PIPE_DIR, "twolevel")
+    config = load_config(os.path.join(ROOT, TL_CONFIG))
+    batch = config["train"]["train_dataloader"]["batch_size"]
+    config["train"]["train_dataloader"] = natural_loader(
+        (215, 178), batch, (steps + 1) * batch, 17, True)
+    config["train"]["test_dataloader"] = natural_loader(
+        (215, 178), batch, batch, 18, False)
+    apply_overrides(config, [
+        f"train.max_step={steps}", f"train.evaluate_interval={steps}",
+        f"train.save_interval={steps}", "train.max_eval_batches=1",
+        "train.log_every=1", "train.test_coding=true",
+        f"train.save_path={d}/twolevel.ckpt", f"train.writer_path={d}/log"])
+    t = build_trainer(config)
+    perturbed(t.model, seed=19)
+    fill_caches(t)
+    flops = one_step_flops(t, lambda b: t.loss_fn(b)[0])
+    wall, launches, peak_gb = trained(t, wrappers)
+    log = os.path.join(d, "log")
+    cfg = t.cfg
+    errors = logged("coding errors", log)[-1][1]
+    assert errors == 0, errors
+    nl = cfg.rough.nsplit + cfg.fine.nsplit
+    assert all(v == nl for v in launches.values()), launches
+    step_s = statistics.median(v for _, v in logged("step time s", log))
+    samples = t.sample_images()
+    shapes = sorted({tuple(v.shape) for v in samples.values()})
+    assert shapes == [(4, cfg.H, cfg.W, cfg.C)] and len(samples) == 4
+    assert all(np.all(np.isfinite(v)) for v in samples.values())
+    equal = resumed_equal(build_trainer, config, t, "model")
+    assert equal, "a resumed two-level trainer differs from the saved one"
+    res = {"phase": "twolevel_train", "config": TL_CONFIG, "batch": batch,
+           "steps": t.step, "wall_s": wall, "step_s": step_s,
+           "train_images_per_s": batch / step_s, **mfu(flops, step_s),
+           "peak_mem_gb": peak_gb,
+           "train_bpd": [v for _, v in logged("train bpd", log)],
+           "train_bpd_1": [v for _, v in logged("train bpd 1", log)],
+           "train_bpd_2": [v for _, v in logged("train bpd 2", log)],
+           "test_bpd": logged("test bpd", log)[-1][1],
+           "real_bpd": logged("real bpd", log)[-1][1],
+           "coding_errors": int(errors), "launches_eval": launches,
+           "sample_shapes": [list(s) for s in shapes],
+           "resume_equal": equal}
+    emit(res)
+    return res
+
+
+def phase_twolevel_cli(wrappers, model):
+    """The file CLI's two-level pipeline at full width (the phase
+    twolevel's model, saved as a checkpoint): two 215x178 .npy files and
+    one 300x200 file (2 x 2 tiles, one chunk of 4) compressed and
+    decompressed in a serve session, bit-exact."""
+    from finalproject_losslessimagecompression_tpu_torch.cli import codec as C
+
+    d = os.path.join(PIPE_DIR, "twolevel_cli")
+    ckpt = save_params(model, os.path.join(d, "twolevel.ckpt"))
+    srcs = write_images(os.path.join(d, "in"),
+                        [(215, 178, 3), (215, 178, 3), (300, 200, 3)], 20)
+    outdir = os.path.join(d, "out")
+    t0 = time.time()
+    pipe = C._load_model(os.path.join(ROOT, TL_CONFIG), ckpt, 4096)
+    torch.cuda.synchronize()
+    startup_s = time.time() - t0
+    batches = [1, 1, 4]
+    cmds = []
+    for verb in ("compress", "decompress"):
+        paths = [p for p, _ in srcs] if verb == "compress" else [
+            os.path.join(outdir, os.path.splitext(os.path.basename(p))[0]
+                         + ".lic") for p, _ in srcs]
+        reset_launches(wrappers)
+        answer = io.StringIO()
+        with contextlib.redirect_stdout(io.StringIO()):
+            C.serve(pipe, lines=[f"{verb} {outdir} " + " ".join(paths)],
+                    out=answer, stored_fallback=False, ext=".npy")
+        reply = answer.getvalue().split()
+        assert reply[0] == "ok", reply
+        launches = launch_counts(wrappers)
+        # one launch of each coding kernel per sub-flow per stream layout
+        # (the chunk sizes 1 and 4), in the command's direction only
+        want = 2 * len(set(batches))
+        assert launches == {n: want if (n in DEC) == (verb == "decompress")
+                            else 0 for n in launches}, launches
+        cmds.append({"command": verb, "files": len(srcs),
+                     "ok_s": float(reply[1]), "launches": launches})
+    check_decoded(outdir, srcs)
+    lics = [os.path.join(outdir, os.path.splitext(os.path.basename(p))[0]
+                         + ".lic") for p, _ in srcs]
+    res = {"phase": "twolevel_cli", "config": TL_CONFIG, "num_streams": 4096,
+           "startup_s": startup_s, "commands": cmds,
+           "modes": lic_stats(lics), "chunk_batches": sorted(set(batches)),
+           "bit_exact": True,
+           "kernel_shapes": twolevel_shapes(pipe.codec, sorted(set(batches)))}
+    emit(res)
+    return res
+
+
+def phase_pipelines(wrappers):
+    """Phases 8-12, their files removed at the end."""
+    shutil.rmtree(PIPE_DIR, ignore_errors=True)
+    vq, vq_ckpt = phase_vqvae_train(wrappers)
+    res_train = phase_residual_train(wrappers, vq_ckpt)
+    twolevel, model = phase_twolevel(wrappers)
+    tl_train = phase_twolevel_train(wrappers)
+    tl_cli = phase_twolevel_cli(wrappers, model)
+    shutil.rmtree(PIPE_DIR, ignore_errors=True)
+    return {"vqvae_train": vq, "residual_train": res_train,
+            "twolevel": twolevel, "twolevel_train": tl_train,
+            "twolevel_cli": tl_cli}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: an 8M-symbol message
 # ---------------------------------------------------------------------------
 
 
@@ -1138,7 +1585,7 @@ def phase_large(depth_ns, n: int = 8 * 2**20):
 # ---------------------------------------------------------------------------
 
 
-def kernels_line(rows, e2e, train, cli, residual):
+def kernels_line(rows, e2e, train, cli, residual, pipes):
     head = [r for r in rows if r["S"] == 384 and not r["seeded"]][0]
     out = []
     for key, name, replaces, extra in (
@@ -1160,6 +1607,18 @@ def kernels_line(rows, e2e, train, cli, residual):
                              if cli else None),
             "launches_residual": (residual["launches"][name] if residual
                                   else None),
+            "launches_residual_train_eval": (
+                pipes["residual_train"]["launches_eval"][name] if pipes
+                else None),
+            "launches_twolevel": (pipes["twolevel"]["launches"][name]
+                                  if pipes else None),
+            "launches_twolevel_train_eval": (
+                pipes["twolevel_train"]["launches_eval"][name] if pipes
+                else None),
+            "launches_twolevel_cli": (
+                {c["command"]: c["launches"][name]
+                 for c in pipes["twolevel_cli"]["commands"]} if pipes
+                else None),
             "max_abs_err": max(r[key]["max_abs_err"] for r in rows),
             "matches_plain": all(r[key]["max_abs_err"] == 0 for r in rows),
             "ms": h["ms"], "plain_ms": h["plain_ms"],
@@ -1183,15 +1642,18 @@ def main(argv) -> int:
     smi = phase_device()
     depth_ns = phase_depth()
     rows, _, _ = phase_kernels(depth_ns)
-    e2e = train = cli = residual = None
+    e2e = train = cli = residual = pipes = None
     if "--quick" not in argv:
         e2e = phase_e2e()
         train = phase_train(kernel_wrappers())
         cli = phase_cli(kernel_wrappers())
         residual = phase_residual(kernel_wrappers())
-        path_kernels(rows, (e2e, cli, residual), depth_ns)
+        pipes = phase_pipelines(kernel_wrappers())
+        path_kernels(rows, (e2e, cli, residual, pipes["residual_train"],
+                            pipes["twolevel"], pipes["twolevel_cli"]),
+                     depth_ns)
         rows.append(phase_large(depth_ns))
-    emit(kernels_line(rows, e2e, train, cli, residual))
+    emit(kernels_line(rows, e2e, train, cli, residual, pipes))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

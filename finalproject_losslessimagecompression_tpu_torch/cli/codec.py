@@ -23,14 +23,15 @@ replication-padded up to a multiple of the tile size, split into tiles
 corpus of many image sizes meets few batch shapes; the original size is in
 the header and the padding is cropped away on decompress.
 
-Two pipelines, selected by the config's shape:
+Three pipelines, selected by the config's shape:
 - `train.model` (IDFlows): FlowCodec over model-size tiles;
+- `train.model` with `name: TwoLevelFlows`: TwoLevelCodec over (H, W)
+  tiles, each chunk's segments the rough containers, then the fine ones;
 - `train.flows` + `train.vqvae` (ResidualTrainer): ResidualCodec over
   `input_size` tiles.  The .lic carries the bit-packed VQ index stream (the
   first segment of each chunk) and the conditional residual containers, so
   it decodes with no side information.  The VQ checkpoint comes from the
   config's `vqvae.checkpoint` or `--vq-ckpt`.
-The two-level pipeline (TwoLevelFlows) is not ported yet.
 
 `.lic` layout: magic b"LIC1" | u32 header_len | JSON header | blobs, the
 JAX package's format version 2.  The header records the original size,
@@ -119,16 +120,54 @@ class _ResidualPipeline:
             [(segs[0], segs[1:], info) for segs, info in packed], fetch=True)
 
 
-def _variant_tag(cfg, device: torch.device) -> str:
-    """Resolved compute-variant flags per NN stack and the backend.  The
-    variants differ in float rounding, and so does the backend (the CDF's
-    exp and the convolutions), so a container decodes bit-exactly only
-    under the variant and backend that wrote it."""
+class _TwoLevelPipeline:
+    """TwoLevelFlows configs (train.model.name == TwoLevelFlows):
+    TwoLevelCodec over (H, W) tiles, the rough containers then the fine
+    ones."""
+
+    name = "twolevel"
+
+    def __init__(self, codec, fingerprint):
+        self.codec = codec
+        self.device = codec.device
+        self.fingerprint = fingerprint
+        cfg = codec.cfg
+        self.tile_h, self.tile_w, self.C = cfg.H, cfg.W, cfg.C
+        self.nbits = cfg.nbits
+
+    def compress_many(self, tiles_list):
+        return [(list(blobs), {"batch": info["batch"]})
+                for blobs, info in self.codec.compress_many(tiles_list)]
+
+    def decompress_many(self, packed):
+        cfg = self.codec.cfg
+        # fine tiles per image over the codec's coded dims
+        ntiles = (self.codec.Hc // cfg.fine.H) * (self.codec.Wc // cfg.fine.W)
+        full = [(segs, {"batch": int(info["batch"]),
+                        "rough": {"batch": int(info["batch"])},
+                        "fine": {"batch": int(info["batch"]) * ntiles}})
+                for segs, info in packed]
+        return self.codec.decompress_many(full, fetch=True)
+
+
+def _flow_flags(cfg) -> str:
     c, p = cfg.couple.nn, cfg.prior_nn
     return (f"fuse={int(c.fuse_1x1)},{int(p.fuse_1x1)};"
             f"dtype={c.dtype},{p.dtype};"
-            f"gm={c.growth_multiple},{p.growth_multiple};"
-            f"backend=torch-{torch.device(device).type}")
+            f"gm={c.growth_multiple},{p.growth_multiple}")
+
+
+def _variant_tag(cfg, device: torch.device) -> str:
+    """Resolved compute-variant flags per NN stack (both sub-flows' for a
+    two-level config) and the backend.  The variants differ in float
+    rounding, and so does the backend (the CDF's exp and the convolutions),
+    so a container decodes bit-exactly only under the variant and backend
+    that wrote it."""
+    from ..models.twolevel import TwoLevelCfg
+
+    flags = (f"rough[{_flow_flags(cfg.rough)}]fine[{_flow_flags(cfg.fine)}]"
+             if isinstance(cfg, TwoLevelCfg) else _flow_flags(cfg))
+    return f"{flags};backend=torch-{torch.device(device).type}"
 
 
 def _fingerprint(model_cfg: dict, variant: str, *ckpt_paths: str) -> str:
@@ -145,12 +184,12 @@ def _fingerprint(model_cfg: dict, variant: str, *ckpt_paths: str) -> str:
 
 def _restore(module, ckpt_path: str, device):
     """Load a `{"params": state_dict}` checkpoint into the module."""
-    from ..train.checkpoint import load_checkpoint
+    from ..train.checkpoint import load_params
 
-    raw = load_checkpoint(ckpt_path, device)
-    if not isinstance(raw, dict) or "params" not in raw:
-        raise SystemExit(f"{ckpt_path}: not a trainer checkpoint")
-    module.load_state_dict(raw["params"])
+    try:
+        module.load_state_dict(load_params(ckpt_path, device))
+    except ValueError as err:
+        raise SystemExit(str(err)) from None
     return module.eval()
 
 
@@ -176,7 +215,15 @@ def _load_model(config_path: str, ckpt_path: str, num_streams: int,
 
 def _load_model_timed(config_path, ckpt_path, num_streams, vq_ckpt, dtype,
                       device):
-    from ..models import FlowCodec, IDFlow, ResidualCodec, build_vqvae_from_ref
+    from ..models import (
+        FlowCodec,
+        IDFlow,
+        ResidualCodec,
+        TwoLevelCfg,
+        TwoLevelCodec,
+        TwoLevelFlow,
+        build_vqvae_from_ref,
+    )
     from ..models.config import FlowCfg
     from ..models.idflow import resolve_device
     from .train import load_config
@@ -211,9 +258,11 @@ def _load_model_timed(config_path, ckpt_path, num_streams, vq_ckpt, dtype,
     model_cfg = dict(train["model"])
     model_cfg.pop("load_path", None)
     if model_cfg.get("name") == "TwoLevelFlows":
-        raise SystemExit(
-            f"{config_path}: the two-level pipeline (TwoLevelFlows) is not "
-            "ported to PyTorch yet: ROADMAP queue 1, item 12")
+        tcfg = TwoLevelCfg.from_ref(model_cfg)
+        model = _restore(TwoLevelFlow(tcfg, device=device), ckpt_path, device)
+        fp = _fingerprint(model_cfg, _variant_tag(tcfg, device), ckpt_path)
+        return _TwoLevelPipeline(
+            TwoLevelCodec(model, num_streams=num_streams), fp)
     cfg = FlowCfg.from_ref(model_cfg)
     model = _restore(IDFlow(cfg, device=device), ckpt_path, device)
     fp = _fingerprint(model_cfg, _variant_tag(cfg, device), ckpt_path)

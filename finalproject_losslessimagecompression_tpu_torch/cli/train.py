@@ -4,8 +4,9 @@
         --config configs/<name>.yaml [--set dotted.path=value ...] [--device cpu]
 
 One --config YAML whose `train` subtree selects a trainer by name
-(`train.trainer`, default Trainer) and passes the rest as constructor
-kwargs; the same files drive the JAX package's trainer.  The YAML is read by
+(`train.trainer`: Trainer, the default, VQVAETrainer, ResidualTrainer or
+TwoLevelTrainer) and passes the rest as constructor kwargs; the same files
+drive the JAX package's trainers.  The YAML is read by
 the port's own subset reader (`cli/yamlite.py`), so training needs no
 PyYAML.  The trainer runs on the card unless `--device cpu` is given.
 """
@@ -16,15 +17,15 @@ import argparse
 import json
 
 from ..registry import TRAINERS
+from ..train import residual_trainer as _residual  # noqa: F401 (registers)
 from ..train import trainer as _trainer  # noqa: F401 (registers Trainer)
+from ..train import twolevel_trainer as _twolevel  # noqa: F401 (registers)
+from ..train import vqvae_trainer as _vqvae  # noqa: F401 (registers)
 from . import yamlite
 
 # trainers of the JAX package that the port does not have yet, with the
 # ROADMAP queue 1 item that ports each
 NOT_PORTED = {
-    "VQVAETrainer": "item 11b (VQ-VAE and residual training)",
-    "ResidualTrainer": "item 11b (VQ-VAE and residual training)",
-    "TwoLevelTrainer": "item 12 (two-level pyramid)",
     "Finetuner": "item 13 (fine-tuner)",
     "FineTuner": "item 13 (fine-tuner)",
 }
@@ -38,8 +39,9 @@ def apply_overrides(config: dict, sets) -> dict:
     """Apply `--set dotted.path=value` overrides in place.
 
     Values parse as YAML scalars (`5000` -> int, `true` -> bool, quoted
-    strings stay strings), and a string that reads as a float (`1e-4`,
-    which YAML 1.1 leaves a string) becomes one.  Intermediate dicts are
+    strings stay strings) or one-line lists of them (`[215, 178, 3]`), and
+    a string that reads as a float (`1e-4`, which YAML 1.1 leaves a string)
+    becomes one.  Intermediate dicts are
     created as needed, so a path can introduce a new key; a path through a
     non-dict raises."""
     for item in sets or ():
@@ -56,7 +58,7 @@ def apply_overrides(config: dict, sets) -> dict:
                     "not a mapping"
                 )
             node = nxt
-        value = yamlite.parse_scalar(raw)
+        value = yamlite.parse_value(raw)
         if isinstance(value, str):
             try:
                 value = float(value)

@@ -56,6 +56,21 @@ def parse_scalar(text: str) -> Any:
     return s
 
 
+def parse_value(text: str) -> Any:
+    """A scalar, or a one-line flow sequence of scalars (`[215, 178, 3]`),
+    as safe_load reads it: what a `--set` override may give."""
+    s = text.strip()
+    if s[:1] == "[" and s[-1:] == "]":
+        body = s[1:-1]
+        if any(c in body for c in "[]{}'\""):
+            raise ValueError(f"unsupported YAML construct: {s!r}")
+        items = [t.strip() for t in body.split(",")]
+        if items[-1] == "":  # `[]` and a trailing comma
+            items.pop()
+        return [parse_scalar(t) for t in items]
+    return parse_scalar(s)
+
+
 def _unescape(body: str) -> str:
     return body.encode("latin-1", "backslashreplace").decode(
         "unicode_escape")

@@ -20,15 +20,21 @@ and each DenseLayer holds its four leaves in either layout: fused
 (`conv1/{kernel, bias}`, `conv3/{kernel, bias}`).  Kernels go from HWIO to
 OIHW; values are copied unchanged.
 
-`opt_state_from_optax(opt_state, names, name)`: an optax Adamax or Adam
-state (`count`, and `mu` / `nu` trees shaped like the params) -> the
+`twolevel_params_from_flax(tree)`: a flax TwoLevelFlow parameter tree
+(`rough` and `fine` IDFlow sub-trees; flax's `nn.remat` keeps the module's
+name) -> the state_dict of `models.TwoLevelFlow`.
+
+`opt_state_from_optax(opt_state, names, name, convert)`: an optax Adamax or
+Adam state (`count`, and `mu` / `nu` trees shaped like the params) -> the
 state_dict of this package's `train.optim.Optimizer`, so that a JAX run
-resumes in the port on the same trajectory.
+resumes in the port on the same trajectory.  `convert` is the converter of
+the model's parameter tree (`params_from_flax` by default,
+`vqvae_params_from_flax` or `twolevel_params_from_flax`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable
 
 import numpy as np
 import torch
@@ -80,6 +86,14 @@ def params_from_flax(tree) -> Dict[str, torch.Tensor]:
         else:
             raise KeyError(f"unexpected IDFlow entry {name!r}")
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+
+
+def twolevel_params_from_flax(tree) -> Dict[str, torch.Tensor]:
+    """The state_dict of `models.TwoLevelFlow`: `params_from_flax` of the
+    `rough` and the `fine` sub-trees."""
+    tree = tree.get("params", tree)
+    return {f"{name}.{k}": v for name in ("rough", "fine")
+            for k, v in params_from_flax(tree[name]).items()}
 
 
 def _conv(node, prefix: str, out, transpose: bool = False) -> None:
@@ -151,22 +165,29 @@ def _adam_state(node):
     return None
 
 
-def opt_state_from_optax(opt_state, names: Iterable, name: str = "Adamax"):
+def opt_state_from_optax(opt_state, names: Iterable, name: str = "Adamax",
+                         convert: Callable = params_from_flax):
     """The port optimizer's state_dict from an optax Adamax/Adam state.
 
     `opt_state` is the JAX trainer's optimizer state with numpy leaves (what
     `jax.device_get` returns; a chain with `clip_by_global_norm` in front
     is fine); `names` are the port model's parameter names in the
     optimizer's order (`[n for n, _ in model.named_parameters()]`, or the
-    pairs themselves); `name` is the optimizer's config name."""
+    pairs themselves); `name` is the optimizer's config name; `convert`
+    maps a moment tree as it maps the parameter tree.  Moments of entries
+    that are not parameters in the port (the VQ-VAE's BatchNorm running
+    averages, which flax keeps beside its params) are dropped."""
     st = _adam_state(opt_state)
     if st is None or name not in _SECOND_MOMENT:
         raise ValueError(f"no {name} moments in this optax state")
-    mu, nu = params_from_flax(st.mu), params_from_flax(st.nu)
+    mu, nu = convert(st.mu), convert(st.nu)
     names = [n if isinstance(n, str) else n[0] for n in names]
-    if sorted(names) != sorted(mu):
+    missing = set(names) - set(mu)
+    extra = {k for k in set(mu) - set(names) if not k.endswith(
+        ("running_mean", "running_var"))}
+    if missing or extra:
         raise KeyError("optax moments do not match the parameter names: "
-                       f"{sorted(set(names) ^ set(mu))}")
+                       f"{sorted(missing | extra)}")
     count = int(np.asarray(st.count))
     state = {
         i: {"step": torch.tensor(float(count)), "exp_avg": mu[n],

@@ -18,6 +18,8 @@ from .idflow import IDFlow, flow_permutations, log_likelihood
 from .exact import FlowCodec
 from .vqvae import VQVAE, VectorQuantizer, build_vqvae_from_ref, vq_reinit
 from .residual_codec import ResidualCodec
+from .twolevel import TwoLevelCfg, TwoLevelFlow, adaptive_pool_matrix
+from .twolevel_codec import TwoLevelCodec
 
 __all__ = [
     "CouplingCfg",
@@ -44,4 +46,8 @@ __all__ = [
     "VectorQuantizer",
     "build_vqvae_from_ref",
     "vq_reinit",
+    "TwoLevelCfg",
+    "TwoLevelFlow",
+    "TwoLevelCodec",
+    "adaptive_pool_matrix",
 ]

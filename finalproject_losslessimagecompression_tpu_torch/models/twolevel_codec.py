@@ -1,0 +1,148 @@
+"""TwoLevelCodec: lossless coding with the two-level pyramid flow.
+
+  compress:   pad -> pool to the rough size, rounded to the grid -> rough
+              IDFlow + rANS; fine residual = padded - upsampled rough ->
+              tiles -> fine IDFlow + rANS.
+  decompress: rough first, then the fine tiles, then x = upsampled rough +
+              merged fine tiles, cropped.
+
+A batch's containers are the rough flow's (one per rough split level),
+then the fine flow's.  The queue forms hand every batch's rough image to
+one `FlowCodec` queue and every batch's fine tiles to another, and pack or
+fetch everything in one copy each way, so a queue pass launches each rANS
+kernel once per (sub-flow, level, stream layout): twice for
+configs/config_twolevel.yaml (nsplit 1 on both sub-flows) when the
+batches have one size.  The containers are byte-identical to per-batch
+coding.
+
+Exactness needs the upsampling to keep the 1/256 grid, which holds when
+the coded dims are multiples of the rough dims (the upsampling rows are
+then one-hot: a replication).  For any other geometry the codec pads
+further, by replication, to the smallest dims (Hc, Wc) divisible by both
+the rough dims and the fine tile dims, codes those and crops on decode.
+The geometry is a function of the config, so no side information is
+coded; the rough image then averages a few replicated edge rows more than
+the trainer's, a rate detail, since the decoder reads the rough image from
+the stream.  x - unpool(rx) and unpool(rx) + fx are exact in float32 on
+the grid; the two sub-flows keep `FlowCodec`'s determinism contract.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Sequence, Tuple
+
+import torch
+
+from ..codec.container import pack_streams_many
+from ..ops.reshape import patch_merge, patch_split
+from ..ops.rounding import round_to_grid
+from .exact import FlowCodec
+from .twolevel import TwoLevelFlow, adaptive_pool_matrix, pad_edge, pool2d
+
+
+def _coded_dim(padded: int, rough: int, tile: int) -> int:
+    """The smallest multiple of lcm(rough, tile) that covers `padded`."""
+    m = math.lcm(rough, tile)
+    return -(-padded // m) * m
+
+
+class TwoLevelCodec:
+    def __init__(self, model: TwoLevelFlow, num_streams: int = 4096):
+        cfg = model.cfg
+        self.cfg = cfg
+        self.model = model
+        self.device = model.device
+        self.rough_codec = FlowCodec(model.rough, num_streams)
+        self.fine_codec = FlowCodec(model.fine, num_streams)
+        if cfg.Hp % cfg.rough.H or cfg.Wp % cfg.rough.W:
+            self.Hc = _coded_dim(cfg.Hp, cfg.rough.H, cfg.fine.H)
+            self.Wc = _coded_dim(cfg.Wp, cfg.rough.W, cfg.fine.W)
+        else:
+            self.Hc, self.Wc = cfg.Hp, cfg.Wp
+        self._own_pool = (self.Hc, self.Wc) != (cfg.Hp, cfg.Wp)
+        if self._own_pool:
+            mats = [adaptive_pool_matrix(*d) for d in (
+                (self.Hc, cfg.rough.H), (self.Wc, cfg.rough.W),
+                (cfg.rough.H, self.Hc), (cfg.rough.W, self.Wc))]
+            self._ph, self._pw, self._uh, self._uw = (
+                torch.from_numpy(m).to(self.device) for m in mats)
+
+    def _unpool(self, rx: torch.Tensor) -> torch.Tensor:
+        if self._own_pool:
+            return pool2d(rx, self._uh, self._uw)
+        return self.model.unpool(rx)
+
+    def _split(self, x: torch.Tensor):
+        """-> (rough image, fine tiles) over the coded dims."""
+        cfg = self.cfg
+        if not self._own_pool:
+            return self.model.split_levels(x)
+        x = pad_edge(x, self.Hc - cfg.H, self.Wc - cfg.W)
+        rx = round_to_grid(pool2d(x, self._ph, self._pw), cfg.nbits)
+        return rx, patch_split(x - self._unpool(rx), cfg.fine.H, cfg.fine.W)
+
+    # -- compress ---------------------------------------------------------
+
+    @torch.no_grad()
+    def compress_many(self, xs):
+        """Serving encode of a queue of batches: the rough images of all
+        batches go to one FlowCodec queue and their fine tiles to another,
+        then every container is packed with one host sync.  Returns a list
+        of (blobs, info), the rough containers first in each."""
+        xs = [torch.as_tensor(x, dtype=torch.float32, device=self.device)
+              for x in xs]
+        splits = [self._split(x) for x in xs]
+        rough = self.rough_codec._compress_deferred_many(
+            [rx for rx, _ in splits])
+        fine = self.fine_codec._compress_deferred_many(
+            [px for _, px in splits])
+        per = [(list(r_encs) + list(f_encs),
+                {"batch": int(x.shape[0]), "rough": r_info, "fine": f_info})
+               for x, (r_encs, r_info), (f_encs, f_info) in zip(xs, rough,
+                                                                fine)]
+        blobs = pack_streams_many([e for encs, _ in per for e in encs])
+        out, pos = [], 0
+        for encs, info in per:
+            out.append((blobs[pos:pos + len(encs)], info))
+            pos += len(encs)
+        return out
+
+    def compress(self, x) -> Tuple[List[bytes], dict]:
+        """Encode an NHWC batch on the 1/256 grid -> (blobs, info)."""
+        return self.compress_many([x])[0]
+
+    # -- decompress -------------------------------------------------------
+
+    @torch.no_grad()
+    def _decompress_deferred_many(self, packed):
+        cfg = self.cfg
+        nr = cfg.rough.nsplit
+        rxs, oks_r = self.rough_codec._decompress_deferred_many(
+            [(blobs[:nr], info["rough"]) for blobs, info in packed])
+        pxs, oks_f = self.fine_codec._decompress_deferred_many(
+            [(blobs[nr:], info["fine"]) for blobs, info in packed])
+        xs = [(self._unpool(rx) + patch_merge(px, self.Hc, self.Wc))[
+            :, :cfg.H, :cfg.W, :] for rx, px in zip(rxs, pxs)]
+        return xs, oks_r + oks_f
+
+    def decompress(self, blobs: Sequence[bytes], info: dict,
+                   fetch: bool = False):
+        """-> x, exactly the compressed batch; fetch=True returns host
+        numpy, copied with the state-invariant check."""
+        return self.decompress_many([(blobs, info)], fetch)[0]
+
+    def decompress_many(self, packed, fetch: bool = False):
+        """Serving decode of [(blobs, info), ...]: both sub-flows' queues,
+        then every state invariant checked with one host sync (fetch=True
+        also returns the batches, as numpy, in that sync)."""
+        xs, oks = self._decompress_deferred_many(packed)
+        if fetch:
+            return self.rough_codec._fetch(xs, oks)
+        FlowCodec._check_got([bool(torch.stack(oks).all())])
+        return xs
+
+    def real_bpd(self, blobs: Sequence[bytes], info: dict) -> float:
+        cfg = self.cfg
+        numel = info["batch"] * cfg.H * cfg.W * cfg.C
+        return FlowCodec.coded_bits(blobs) / float(numel)

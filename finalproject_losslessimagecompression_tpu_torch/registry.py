@@ -2,8 +2,8 @@
 
 The port's own copy of the JAX package's `registry.py` (framework-free, but
 the port imports nothing of that package).  Only the registries the ported
-slices fill are declared: datasets, data loaders, optimizers, schedulers and
-trainers.
+slices fill are declared: distributions, datasets, data loaders,
+optimizers, schedulers and trainers.
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ class Registry:
             ) from None
 
 
+DISTRIBUTIONS = Registry("distributions")
 DATASETS = Registry("datasets")
 DATALOADERS = Registry("dataloaders")
 OPTIMIZERS = Registry("optimizers")

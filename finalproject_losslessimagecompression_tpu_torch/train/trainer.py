@@ -44,6 +44,21 @@ from .optim import build_optimizer
 LN2 = math.log(2.0)
 
 
+def refuse_mesh(use_mesh: bool, device: torch.device) -> None:
+    """The trainers' `use_mesh` over several GPUs is not ported."""
+    if use_mesh and device.type == "cuda" and torch.cuda.device_count() > 1:
+        raise NotImplementedError(
+            "use_mesh over several GPUs is not ported yet (ROADMAP queue 1, "
+            "item 15: scale-out); set use_mesh: false or make one GPU "
+            "visible")
+
+
+def at_interval(step: int, step_per_epoch: int, interval: int) -> bool:
+    """Every epoch before the first interval, then at the interval."""
+    return (step % step_per_epoch == 0 and step < interval) or \
+        step % interval == 0
+
+
 @TRAINERS.register(name="Trainer")
 class Trainer:
     """Config shape: the `train` subtree of configs/*.yaml."""
@@ -71,12 +86,7 @@ class Trainer:
         device=None,
     ):
         self.device = resolve_device(device)
-        if (use_mesh and self.device.type == "cuda"
-                and torch.cuda.device_count() > 1):
-            raise NotImplementedError(
-                "use_mesh over several GPUs is not ported yet (ROADMAP "
-                "queue 1, item 15: scale-out); set use_mesh: false or make "
-                "one GPU visible")
+        refuse_mesh(use_mesh, self.device)
         model = dict(model)
         self.load_path = model.pop("load_path", None)
         self.cfg = FlowCfg.from_ref(model)
@@ -340,7 +350,4 @@ class Trainer:
         self.save()
 
     def _at_interval(self, interval: int) -> bool:
-        # every epoch before the first interval, then at the interval
-        return (
-            self.step % self.step_per_epoch == 0 and self.step < interval
-        ) or self.step % interval == 0
+        return at_interval(self.step, self.step_per_epoch, interval)

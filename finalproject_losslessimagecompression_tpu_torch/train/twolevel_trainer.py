@@ -1,0 +1,213 @@
+"""Two-level trainer: the JAX package's `TwoLevelTrainer` on PyTorch.
+
+One step computes the rough and the fine loss together (the fine flow's
+activations recomputed in the backward pass, `models/twolevel.py`) and
+logs the image bpd and the two levels' (`train bpd`, `train bpd 1`,
+`train bpd 2`), fetched only at the `log_every` cadence.  Eval gives the
+same three on the test batches and, with `test_coding`, compresses and
+decompresses each batch for real through `TwoLevelCodec` (on the card:
+the rANS kernels), logging `real bpd` and `coding errors`; then samples at
+four temperatures.  Checkpoints hold {params, opt_state, step}.
+
+The trainer runs on the card unless the caller passes device="cpu".
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..data import loader as _loader  # noqa: F401  (registers loaders)
+from ..models.config import latent_shapes
+from ..models.idflow import log_likelihood, resolve_device
+from ..models.twolevel import TwoLevelCfg, TwoLevelFlow, twolevel_bpd
+from ..models.twolevel_codec import TwoLevelCodec
+from ..ops.dlogistic import dlogistic_sample
+from ..registry import DATALOADERS, TRAINERS, build
+from ..utils.profiling import StepClock
+from .checkpoint import load_checkpoint, save_checkpoint
+from .metrics import MetricsWriter
+from .optim import build_optimizer
+from .trainer import at_interval, refuse_mesh
+
+LN2 = math.log(2.0)
+
+
+@TRAINERS.register(name="TwoLevelTrainer")
+class TwoLevelTrainer:
+    """Config shape: the `train` subtree of configs/config_twolevel.yaml."""
+
+    def __init__(
+        self,
+        model: dict,
+        train_dataloader: dict,
+        test_dataloader: dict,
+        optimizer: dict,
+        scheduler: dict,
+        max_step: int,
+        step_per_epoch: int,
+        evaluate_interval: int,
+        save_interval: int,
+        save_path: str,
+        writer_path: str,
+        seed: int = 0,
+        max_eval_batches: int = 0,
+        test_coding: bool = False,
+        num_streams: int = 4096,
+        use_mesh: bool = False,
+        log_every: int = 1,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        refuse_mesh(use_mesh, self.device)
+        model = dict(model)
+        self.load_path = model.pop("load_path", None)
+        self.cfg = TwoLevelCfg.from_ref(model)
+        self.model = TwoLevelFlow(self.cfg, device=self.device, seed=seed)
+        self.trainloader = build(DATALOADERS, train_dataloader)
+        self.testloader = build(DATALOADERS, test_dataloader)
+        self.optimizer = build_optimizer(self.model.parameters(), optimizer,
+                                         scheduler, step_per_epoch)
+        self.max_step = max_step
+        self.step_per_epoch = step_per_epoch
+        self.evaluate_interval = evaluate_interval
+        self.save_interval = save_interval
+        self.save_path = save_path
+        self.writer = MetricsWriter(writer_path)
+        self.max_eval_batches = max_eval_batches
+        self.log_every = max(1, log_every)
+        self.step = 0
+        if self.load_path:
+            self.restore(self.load_path)
+        self.sample_gen = torch.Generator(device=self.device).manual_seed(
+            seed + 1)
+        self.test_coding = test_coding
+        self.codec = (TwoLevelCodec(self.model, num_streams=num_streams)
+                      if test_coding else None)
+
+    # -- checkpointing ----------------------------------------------------
+
+    def _state(self):
+        return {"params": self.model.state_dict(),
+                "opt_state": self.optimizer.state_dict(), "step": self.step}
+
+    def save(self, path: Optional[str] = None):
+        save_checkpoint(path or self.save_path, self._state())
+
+    def restore(self, path: str):
+        st = load_checkpoint(path, self.device)
+        self.model.load_state_dict(st["params"])
+        self.optimizer.load_state_dict(st["opt_state"])
+        self.step = int(st["step"])
+
+    # -- steps ------------------------------------------------------------
+
+    def loss_fn(self, batch: torch.Tensor):
+        """(rough + fine mean NLL in nats/dim, [rough, fine] stacked)."""
+        cfg = self.cfg
+        (rl, rm, rs), (fl, fm, fs) = self.model(batch)
+        loss_r = -log_likelihood(cfg.rough, rl, rm, rs)[0].mean()
+        loss_f = -log_likelihood(cfg.fine, fl, fm, fs)[0].mean()
+        return loss_r + loss_f, torch.stack([loss_r, loss_f])
+
+    def train_step(self, batch: torch.Tensor):
+        """One update; returns (loss, [rough, fine] losses) on the device,
+        no host sync."""
+        loss, aux = self.loss_fn(batch)
+        self.optimizer.zero_grad()
+        loss.backward()
+        self.optimizer.step()
+        return loss.detach(), aux.detach()
+
+    @torch.no_grad()
+    def eval_step(self, batch: torch.Tensor):
+        return self.loss_fn(batch)
+
+    def _bpds(self, aux: torch.Tensor):
+        """(image bpd, rough bpd, fine bpd) of the two levels' losses."""
+        bpd1, bpd2 = (float(v) / LN2 for v in aux.cpu().numpy())
+        return twolevel_bpd(self.cfg, bpd1, bpd2), bpd1, bpd2
+
+    # -- eval and sampling ------------------------------------------------
+
+    def evaluate(self):
+        """Mean (bpd, bpd 1, bpd 2) over the eval batches; with test_coding
+        the real coded bpd and the coding errors are logged."""
+        out, real_bpds, errors = [], [], 0
+        for n, host in enumerate(iter(self.testloader), 1):
+            host = np.ascontiguousarray(host)
+            batch = torch.from_numpy(host).to(self.device)
+            out.append(self._bpds(self.eval_step(batch)[1]))
+            if self.codec is not None:
+                try:
+                    blobs, info = self.codec.compress(batch)
+                    rec = self.codec.decompress(blobs, info, fetch=True)
+                    errors += int(np.sum(rec != host))
+                    real_bpds.append(self.codec.real_bpd(blobs, info))
+                except ValueError:
+                    # an undecodable container: the whole batch failed
+                    errors += int(host.size)
+            if self.max_eval_batches and n >= self.max_eval_batches:
+                break
+        if self.codec is not None:
+            self.writer.add_scalar(
+                "real bpd",
+                float(np.mean(real_bpds)) if real_bpds else float("nan"),
+                self.step)
+            self.writer.add_scalar("coding errors", errors, self.step)
+        return tuple(float(np.mean([o[i] for o in out])) for i in range(3))
+
+    @torch.no_grad()
+    def sample_images(self, batch: int = 4,
+                      temperatures=(0.25, 0.5, 0.75, 1.0)):
+        """{temperature: [batch, H, W, C] numpy samples}, from one draw of
+        logistic noise per level scaled by each temperature."""
+        c = self.cfg
+        r = latent_shapes(c.rough)[0]
+        f = latent_shapes(c.fine)[0]
+        tiles = (c.Hp // c.fine.H) * (c.Wp // c.fine.W)
+        noises = []
+        for s in (r, (f[0], f[1], f[2] * tiles)):
+            zero = torch.zeros((batch,) + tuple(s), device=self.device)
+            noises.append(dlogistic_sample(zero, zero, c.nbits,
+                                           self.sample_gen))
+        return {t: self.model.sample_from_noise([n * t for n in noises])
+                .cpu().numpy() for t in temperatures}
+
+    # -- main loop --------------------------------------------------------
+
+    def train(self):
+        clock = StepClock()
+        while self.step < self.max_step:
+            self.step += 1
+            batch = torch.from_numpy(np.asarray(next(self.trainloader))).to(
+                self.device)
+            _, aux = self.train_step(batch)
+            if self.step % self.log_every == 0:
+                # the loss fetch syncs the host, at the log cadence only
+                bpd, bpd1, bpd2 = self._bpds(aux)
+                self.writer.add_scalar("train bpd", bpd, self.step)
+                self.writer.add_scalar("train bpd 1", bpd1, self.step)
+                self.writer.add_scalar("train bpd 2", bpd2, self.step)
+                step_s = clock.tick(self.log_every)
+                if step_s is not None:
+                    self.writer.add_scalar("step time s", step_s, self.step)
+
+            if self._at_interval(self.evaluate_interval):
+                tb, tb1, tb2 = self.evaluate()
+                self.writer.add_scalar("test bpd", tb, self.step)
+                self.writer.add_scalar("test bpd 1", tb1, self.step)
+                self.writer.add_scalar("test bpd 2", tb2, self.step)
+                for t, img in self.sample_images().items():
+                    self.writer.add_image_grid(f"t={t}", img, self.step)
+                clock.reset()
+            if self._at_interval(self.save_interval):
+                self.save()
+                clock.reset()
+        self.save()
+
+    def _at_interval(self, interval: int) -> bool:
+        return at_interval(self.step, self.step_per_epoch, interval)

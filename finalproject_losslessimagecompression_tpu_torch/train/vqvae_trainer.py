@@ -1,0 +1,203 @@
+"""VQ-VAE trainer: the JAX package's `VQVAETrainer` on PyTorch.
+
+Loss = alpha * reconstruction NLL + VQ loss, on inputs scaled to [-1, 1];
+the reconstruction NLL is the config's distribution (Binomial by default,
+`ops/distributions.py`).  With BatchNorm the step normalises with batch
+statistics and updates the running averages by flax's rule
+(`models.layers.BatchNorm`).  Dead-code reinitialisation runs every step as
+the pure `vq_reinit` on the device, with no host sync; whether it fired is
+fetched only at the `log_every` cadence, where the losses are fetched too.
+The usage counts are trainer state: checkpoints hold {params, opt_state,
+step, counts}, so a resume restores them.
+
+The trainer runs on the card unless the caller passes device="cpu".
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..data import loader as _loader  # noqa: F401  (registers loaders)
+from ..models.idflow import resolve_device
+from ..models.vqvae import build_vqvae_from_ref, vq_reinit, vqvae_reinit_params
+from ..ops import distributions as _distributions  # noqa: F401  (registers)
+from ..registry import DATALOADERS, DISTRIBUTIONS, TRAINERS, build
+from ..utils.profiling import StepClock
+from .checkpoint import load_checkpoint, save_checkpoint
+from .metrics import MetricsWriter
+from .optim import build_optimizer
+from .trainer import at_interval, refuse_mesh
+
+LN2 = math.log(2.0)
+
+
+@TRAINERS.register(name="VQVAETrainer")
+class VQVAETrainer:
+    """Config shape: the `train` subtree of configs/vqvae_for_*.yaml."""
+
+    def __init__(
+        self,
+        model: dict,
+        train_dataloader: dict,
+        test_dataloader: dict,
+        optimizer: dict,
+        scheduler: dict,
+        max_step: int,
+        step_per_epoch: int,
+        evaluate_interval: int,
+        save_interval: int,
+        save_path: str,
+        writer_path: str,
+        train_args: Optional[dict] = None,
+        seed: int = 0,
+        max_eval_batches: int = 0,
+        use_mesh: bool = False,
+        log_every: int = 1,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        refuse_mesh(use_mesh, self.device)
+        model = dict(model)
+        self.load_path = model.pop("load_path", None)
+        self.reinit_interval, self.threshold = vqvae_reinit_params(model)
+        self.model = build_vqvae_from_ref(model, device=self.device,
+                                          seed=seed)
+        self.dist = DISTRIBUTIONS.get(self.model.distribution)()
+        self.trainloader = build(DATALOADERS, train_dataloader)
+        self.testloader = build(DATALOADERS, test_dataloader)
+        self.optimizer = build_optimizer(self.model.parameters(), optimizer,
+                                         scheduler, step_per_epoch)
+        self.max_step = max_step
+        self.step_per_epoch = step_per_epoch
+        self.evaluate_interval = evaluate_interval
+        self.save_interval = save_interval
+        self.save_path = save_path
+        self.writer = MetricsWriter(writer_path)
+        self.max_eval_batches = max_eval_batches
+        self.log_every = max(1, log_every)
+        self.step = 0
+
+        train_args = dict(train_args or {})
+        self.alpha = train_args.pop("alpha", 1.0)
+        self.beta = train_args.pop("beta", 0.25)
+        self.gamma = train_args.pop("gamma", 1.0)
+        self.counts = torch.zeros(self.model.embed_num, device=self.device)
+        # codewords replaced since the trainer was built, on the device
+        self.replaced = torch.zeros((), dtype=torch.int64, device=self.device)
+        if self.load_path:
+            self.restore(self.load_path)
+
+    # -- checkpointing ----------------------------------------------------
+
+    def _state(self):
+        return {"params": self.model.state_dict(),
+                "opt_state": self.optimizer.state_dict(),
+                "step": self.step, "counts": self.counts}
+
+    def save(self, path: Optional[str] = None):
+        save_checkpoint(path or self.save_path, self._state())
+
+    def restore(self, path: str):
+        st = load_checkpoint(path, self.device)
+        self.model.load_state_dict(st["params"])
+        self.optimizer.load_state_dict(st["opt_state"])
+        self.step = int(st["step"])
+        self.counts = st["counts"]
+
+    # -- steps ------------------------------------------------------------
+
+    def loss_fn(self, batch: torch.Tensor):
+        """(alpha * recloss + vqloss, recloss, vqloss, counts, flat) of an
+        NHWC batch in [0, 1]; BatchNorm (if any) in train mode."""
+        out, vqloss, counts, flat = self.model((batch - 0.5) / 0.5, self.beta,
+                                               self.gamma, train=True)
+        recloss = -self.dist.log_prob(batch, out * 0.5 + 0.5).mean()
+        return self.alpha * recloss + vqloss, recloss, vqloss, counts, flat
+
+    def train_step(self, batch: torch.Tensor):
+        """One update; returns (loss, recloss, vqloss, counts, flat) on the
+        device, no host sync."""
+        loss, recloss, vqloss, counts, flat = self.loss_fn(batch)
+        self.optimizer.zero_grad()
+        loss.backward()
+        self.optimizer.step()
+        return (loss.detach(), recloss.detach(), vqloss.detach(), counts,
+                flat.detach())
+
+    @torch.no_grad()
+    def reinit(self, flat: torch.Tensor):
+        """Dead-code reinitialisation after a step (`vq_reinit` on the
+        accumulated counts and the step's encoder vectors); returns (did,
+        replaced) as device scalars."""
+        cb = self.model.vq.codebook
+        new_cb, self.counts, did, nrep = vq_reinit(
+            cb, self.counts, flat, float(self.reinit_interval),
+            float(self.threshold))
+        cb.copy_(new_cb)
+        self.replaced += torch.where(did, nrep, 0)
+        return did, nrep
+
+    @torch.no_grad()
+    def eval_recon(self, batch: torch.Tensor):
+        """(recloss, reconstruction in [0, 1]) with the running averages."""
+        out = self.model.reconstruct((batch - 0.5) / 0.5) * 0.5 + 0.5
+        return -self.dist.log_prob(batch, out).mean(), out
+
+    def evaluate(self):
+        """(test bpd, the last batch's reconstruction as numpy)."""
+        bpds, last = [], None
+        for n, host in enumerate(iter(self.testloader), 1):
+            batch = torch.from_numpy(np.ascontiguousarray(host)).to(
+                self.device)
+            recloss, out = self.eval_recon(batch)
+            bpds.append(float(recloss) / LN2)
+            last = out.cpu().numpy()
+            if self.max_eval_batches and n >= self.max_eval_batches:
+                break
+        return float(np.mean(bpds)) if bpds else float("nan"), last
+
+    # -- main loop --------------------------------------------------------
+
+    def train(self):
+        clock = StepClock()
+        while self.step < self.max_step:
+            self.step += 1
+            batch = torch.from_numpy(np.asarray(next(self.trainloader))).to(
+                self.device)
+            loss, recloss, vqloss, counts, flat = self.train_step(batch)
+            self.counts = self.counts + counts
+            if self.reinit_interval:
+                did, nrep = self.reinit(flat)
+            if self.step % self.log_every == 0:
+                # the scalar reads sync the host, so the reinit report rides
+                # the log cadence (the reinit itself runs every step)
+                if self.reinit_interval and bool(did):
+                    print(f"vq re-init: replaced {int(nrep)} codewords")
+                rl = float(recloss)
+                self.writer.add_scalar("train loss", float(loss), self.step)
+                self.writer.add_scalar("train recloss", rl, self.step)
+                self.writer.add_scalar("train vqloss", float(vqloss),
+                                       self.step)
+                self.writer.add_scalar("train bpd", rl / LN2, self.step)
+                step_s = clock.tick(self.log_every)
+                if step_s is not None:
+                    self.writer.add_scalar("step time s", step_s, self.step)
+
+            if self._at_interval(self.evaluate_interval):
+                bpd, recon = self.evaluate()
+                self.writer.add_scalar("test bpd", bpd, self.step)
+                if recon is not None:
+                    self.writer.add_image_grid("reconstruct", recon,
+                                               self.step)
+                clock.reset()
+            if self._at_interval(self.save_interval):
+                self.save()
+                clock.reset()
+        self.save()
+
+    def _at_interval(self, interval: int) -> bool:
+        return at_interval(self.step, self.step_per_epoch, interval)

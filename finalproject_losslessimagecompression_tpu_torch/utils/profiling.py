@@ -1,6 +1,7 @@
 """Timing and FLOP accounting for the trainer.
 
 - `PhaseTimer`: accumulating host wall-clock spans with a report.
+- `StepClock`: host seconds per training step between log points.
 - `fence(device)`: `torch.cuda.synchronize()` on the card (PyTorch returns
   before the device finishes, so a timed region must end in one), nothing
   on the CPU.
@@ -48,6 +49,24 @@ class PhaseTimer:
                 "mean_s": self.totals[k] / max(self.counts[k], 1)}
             for k in self.totals
         }
+
+
+class StepClock:
+    """Seconds per step between log points.  `tick(steps)`, called where
+    the host has just synced with the device (a loss fetch), returns the
+    host seconds per step since the previous tick, None at the first;
+    `reset()` after work that is not training (eval, checkpoints)."""
+
+    def __init__(self):
+        self.last = None
+
+    def tick(self, steps: int) -> Optional[float]:
+        now = time.time()
+        last, self.last = self.last, now
+        return None if last is None else (now - last) / steps
+
+    def reset(self) -> None:
+        self.last = None
 
 
 def step_flops(fn) -> Tuple[object, int]:

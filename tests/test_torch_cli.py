@@ -354,16 +354,6 @@ def test_residual_config_roundtrip(plain_ckpt, tmp_path):
                + _args(plain_ckpt, tmp_path))
 
 
-def test_two_level_config_raises(tmp_path):
-    """A TwoLevelFlows config is refused, naming its ROADMAP item."""
-    cfg = _write_yaml(tmp_path / "tl.yaml", dict(train=dict(
-        trainer="TwoLevelTrainer",
-        model=dict(name="TwoLevelFlows", H=16, W=16, C=3))))
-    with pytest.raises(SystemExit, match="item 12"):
-        C.main(["compress", "--input", "x.npy"]
-               + _args("none.ckpt", tmp_path, config=cfg))
-
-
 def test_dtype_bfloat16(plain_ckpt, tmp_path):
     """--dtype bfloat16 round-trips under itself, and its container is
     refused by the float32 pipeline.  Tolerance: exact."""

@@ -112,10 +112,13 @@ def test_port_imports_no_jax(tmp_path):
             "ops.reshape", "ops.dlogistic", "models", "models.config",
             "models.layers", "models.invertible", "models.idflow",
             "models.exact", "models.vqvae", "models.residual_codec",
+            "models.twolevel", "models.twolevel_codec", "ops.distributions",
             "convert", "registry", "data", "data.datasets",
             "data.loader", "train", "train.optim", "train.metrics",
-            "train.checkpoint", "train.trainer", "utils.profiling",
-            "cli.yamlite", "cli.train", "cli.codec",
+            "train.checkpoint", "train.trainer", "train.vqvae_trainer",
+            "train.residual_trainer", "train.twolevel_trainer",
+            "utils.profiling", "cli.yamlite", "cli.train", "cli.codec",
+            "cli.make_res_data",
         )
     ] + [PORT, "chip_smoke", "chip_decode_variants"]
     blocked = ("yaml", "PIL", "msgpack", "optax", "tensorboard",

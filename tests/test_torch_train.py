@@ -610,14 +610,34 @@ def test_cli_main_trains_two_steps_on_cpu(tmp_path):
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
-    """Without CUDA, a Trainer built with no device raises instead of
-    training on the CPU; trainers the port lacks raise NotImplementedError
-    naming their ROADMAP item."""
+    """Without CUDA, a Trainer, VQVAETrainer, ResidualTrainer or
+    TwoLevelTrainer built with no device raises instead of training on the
+    CPU, and builds with device="cpu"; the fine-tuner, which the port
+    lacks, raises NotImplementedError naming its ROADMAP item."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ttrainer.Trainer(**train_cfg(tmp_path))
-    for name, item in (("VQVAETrainer", "item 11"),
-                       ("TwoLevelTrainer", "item 12"),
-                       ("Finetuner", "item 13")):
-        with pytest.raises(NotImplementedError, match=item):
+    base = train_cfg(tmp_path)
+    model = base.pop("model")
+    base.pop("test_coding")
+    vq = dict(name="VQVAE", channel=3, embed_num=8, embed_dim=4,
+              hidden_dims=[4, 4], encoder=dict(block_num=1),
+              decoder=dict(block_num=1))
+    configs = {
+        "VQVAETrainer": dict(base, model=vq),
+        "ResidualTrainer": dict(base, flows=model, vqvae={}, nouse_vqvae=True,
+                                input_size=[16, 16], patch_batch_size=0),
+        "TwoLevelTrainer": dict(base, model=dict(
+            name="TwoLevelFlows", H=16, W=16, C=3, pad=[0, 0],
+            rough_flows=dict(model, H=8, W=8), fine_flows=dict(model, H=8,
+                                                               W=8))),
+    }
+    for name, cfg in configs.items():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tcli.build_trainer({"train": dict(cfg, trainer=name)})
+        t = tcli.build_trainer({"train": dict(cfg, trainer=name)},
+                               device="cpu")
+        assert type(t).__name__ == name and t.device.type == "cpu"
+    for name in ("Finetuner", "FineTuner"):
+        with pytest.raises(NotImplementedError, match="item 13"):
             tcli.build_trainer({"train": {"trainer": name}}, device="cpu")
