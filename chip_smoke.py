@@ -97,19 +97,46 @@ Phases, each printing one JSON line:
             eval of one batch coded through TwoLevelCodec (0 errors),
             FLOPs, MFU, peak memory, samples at four temperatures, resume.
 12. twolevel_cli  phase 10's model through the file CLI: two 215x178 files
-            and a 300x200 one (4 tiles, one chunk) in a serve session,
+            and a 300x200 one (4 tiles, one chunk) compressed in a serve
+            session and decompressed by the CLI in a process of its own
+            (`python -c CLI_CHILD`, which prints its launch counts),
             bit-exact, one launch of each kernel per sub-flow per chunk
             size.  Phases 8-12 write under logs/chip_smoke_pipelines,
             removed at the end.
    paths    phase 3's kernel checks at every other (S, k, seeded) shape
-            that phases 4, 6, 7, 9, 10 and 12 coded with (each codec's own
-            stream policy over its batch sizes: the CLI's chunks of 1, 8
-            and 4 tiles, the two-level sub-flows' rough images and fine
+            that phases 4, 6, 7, 9, 10, 12 and 16 coded with (each codec's
+            own stream policy over its batch sizes: the CLI's chunks of 1,
+            8 and 4 tiles, the two-level sub-flows' rough images and fine
             tiles), so every launch shape of every path is held against
             the plain coder.
 13. large   an 8M-symbol message (S=8192, k=1024): the kernels against their
             plain versions as in phase 3, then the whole encode and decode
             timed, bit-exact.
+14. finetune  configs/config-trans-test.yaml at full width through
+            cli.train (the Finetuner: 64x48x3, nflows 8, nsplit 3,
+            DenseBlocks 512 x 12, batch 16, Adam at fine_tune_lr 1e-3), its
+            load_path a checkpoint of phase 4's seeded weights (a flow's
+            weights do not depend on H, W), both loaders on
+            NaturalSynthetic 64x48: 8 tuning steps saving every 4 (the
+            model bit-identical after them, the tuner nonzero), a resume
+            that restores tuner, Adam state and step, then 3 steps with
+            fine_tune off (tuner zero, no checkpoint).  Step time,
+            images/s, FLOPs (input gradients only), MFU, peak memory, bpd.
+15. visualize  cli.visualize on configs/vis_config_imagenet64.yaml at full
+            width (the flagship 64x64 flow, the same checkpoint): grids of
+            16 samples at temperatures 0.25-1.0, each held to the identity
+            forward(sample) == the latents the sampler drew, exactly; an
+            8 x 8 interpolation between four NaturalSynthetic corners.
+            Seconds per grid.
+16. padded  phase 4's weights zero-padded by pad_growth_params to growth
+            multiples 16 and 64 (48 and 64 channels per 3x3 conv against
+            42-43): the same 4 x 16 queue compressed and decompressed,
+            bit-exact, one launch of each kernel per level; images/s, idle
+            share, the convolutions' device ms (`padded_profile_<m>`)
+            against phase 4's profile of the unpadded model, latents that
+            differ from the unpadded model's (reported); its launch shapes
+            then go through `paths`.  Phases 14-16 write under
+            logs/chip_smoke_tools, removed at the end.
 
 Then the `kernels` summary line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero; with
@@ -642,16 +669,19 @@ def phase_e2e(batch: int = 16, queue: int = 4):
                                  for lv in range(nl)],
            "kernel_shapes": coded_shapes(codec, [batch])}
     emit(res)
-    profile_pass(lambda: codec.decompress_many(codec.compress_many(xs),
-                                               fetch=True), wall)
+    res["profile"] = profile_pass(
+        lambda: codec.decompress_many(codec.compress_many(xs), fetch=True),
+        wall)
     return res
 
 
 def profile_pass(run, unprofiled_wall: float, phase: str = "profile",
                  top: int = 12):
     """torch.profiler over one queue pass `run()`: device time by kernel
-    name and the share of wall time the device sat idle, against the
-    profiled pass's own wall time and against the unprofiled pass's."""
+    name, of the convolutions and of the rANS kernels, and the share of
+    wall time the device sat idle, against the profiled pass's own wall
+    time and against the unprofiled pass's.  Emits and returns the
+    record."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -665,28 +695,42 @@ def profile_pass(run, unprofiled_wall: float, phase: str = "profile",
     busy_us = sum(us for _, us, _ in kernels)
     rans_us = sum(us for name, us, _ in kernels
                   if any(n in name for n in ENC + DEC))
-    emit({"phase": phase, "wall_s": wall, "device_busy_s": busy_us / 1e6,
-          "rans_device_ms": rans_us / 1e3,
-          "device_idle_share": 1.0 - busy_us / 1e6 / wall,
-          "device_idle_share_unprofiled": 1.0 - busy_us / 1e6
-          / unprofiled_wall,
-          "top": [{"name": name[:80], "device_ms": us / 1e3, "calls": n}
-                  for name, us, n in kernels[:top]]})
+    res = {"phase": phase, "wall_s": wall, "device_busy_s": busy_us / 1e6,
+           "rans_device_ms": rans_us / 1e3,
+           "conv_device_ms": conv_ms(kernels),
+           "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+           "device_idle_share_unprofiled": 1.0 - busy_us / 1e6
+           / unprofiled_wall,
+           "top": [{"name": name[:80], "device_ms": us / 1e3, "calls": n}
+                   for name, us, n in kernels[:top]]}
+    emit(res)
+    return res
+
+
+def conv_ms(kernels) -> float:
+    """Device ms of the convolution kernels in kernel_times' list (cuDNN's
+    and the implicit-GEMM / Winograd / FFT kernels it runs)."""
+    keys = ("conv", "cudnn", "xmma", "implicit", "winograd", "fft")
+    return sum(us for name, us, _ in kernels
+               if any(k in name.lower() for k in keys)) / 1e3
 
 
 def kernel_times(prof):
     """[(kernel name, device us, launches)] of a profile, most time first.
     Kernels only: operator entries carry their kernels' time as well, and a
     user annotation (`Optimizer.step#Adamax.step`) spans its kernels on the
-    device timeline."""
+    device timeline.  Read from the profiler's raw events: building
+    `prof.events()` (the operator tree) for a flagship pass's ~85,000
+    device events took ~45 s of host time beside an H100
+    (chip_profile_read.py compares the two reads)."""
     times, calls = {}, {}
-    for e in prof.events():
-        if (e.device_type != torch.autograd.DeviceType.CUDA
-                or getattr(e, "is_user_annotation", False)
-                or e.self_device_time_total <= 0):
+    for e in prof.profiler.kineto_results.events():
+        us = (e.end_ns() - e.start_ns()) / 1e3
+        if (e.device_type() != torch.autograd.DeviceType.CUDA
+                or e.is_user_annotation() or us <= 0):
             continue
-        times[e.name] = times.get(e.name, 0.0) + e.self_device_time_total
-        calls[e.name] = calls.get(e.name, 0) + 1
+        times[e.name()] = times.get(e.name(), 0.0) + us
+        calls[e.name()] = calls.get(e.name(), 0) + 1
     return sorted(((k, times[k], calls[k]) for k in times),
                   key=lambda kv: -kv[1])
 
@@ -1329,15 +1373,20 @@ def phase_residual_train(wrappers, vq_ckpt: str, steps: int = 4):
     return res
 
 
-def twolevel_images(n: int, seed: int):
-    """n NaturalSynthetic 215x178x3 images on the 1/256 grid."""
+def natural_images(size, n: int, seed: int):
+    """n NaturalSynthetic images of `size` (H, W) x 3 on the 1/256 grid."""
     from finalproject_losslessimagecompression_tpu_torch.data.datasets import (  # noqa: E501
         NaturalSynthetic,
     )
 
-    ds = NaturalSynthetic(size=(215, 178, 3), length=n, seed=seed)
+    ds = NaturalSynthetic(size=(*size, 3), length=n, seed=seed)
     return np.stack([np.round(ds[i] * 256) / np.float32(256)
                      for i in range(n)]).astype(np.float32)
+
+
+def twolevel_images(n: int, seed: int):
+    """n NaturalSynthetic 215x178x3 images on the 1/256 grid."""
+    return natural_images((215, 178), n, seed)
 
 
 def twolevel_shapes(codec, batches):
@@ -1482,47 +1531,55 @@ def phase_twolevel_train(wrappers, steps: int = 3):
 def phase_twolevel_cli(wrappers, model):
     """The file CLI's two-level pipeline at full width (the phase
     twolevel's model, saved as a checkpoint): two 215x178 .npy files and
-    one 300x200 file (2 x 2 tiles, one chunk of 4) compressed and
-    decompressed in a serve session, bit-exact."""
+    one 300x200 file (2 x 2 tiles, one chunk of 4) compressed in a serve
+    session and decompressed by the CLI in a process of its own (its
+    priors and cuDNN's algorithm choices made anew there), bit-exact."""
     from finalproject_losslessimagecompression_tpu_torch.cli import codec as C
 
     d = os.path.join(PIPE_DIR, "twolevel_cli")
+    config = os.path.join(ROOT, TL_CONFIG)
     ckpt = save_params(model, os.path.join(d, "twolevel.ckpt"))
     srcs = write_images(os.path.join(d, "in"),
                         [(215, 178, 3), (215, 178, 3), (300, 200, 3)], 20)
     outdir = os.path.join(d, "out")
+    lics = [os.path.join(outdir, os.path.splitext(os.path.basename(p))[0]
+                         + ".lic") for p, _ in srcs]
     t0 = time.time()
-    pipe = C._load_model(os.path.join(ROOT, TL_CONFIG), ckpt, 4096)
+    pipe = C._load_model(config, ckpt, 4096)
     torch.cuda.synchronize()
     startup_s = time.time() - t0
     batches = [1, 1, 4]
-    cmds = []
-    for verb in ("compress", "decompress"):
-        paths = [p for p, _ in srcs] if verb == "compress" else [
-            os.path.join(outdir, os.path.splitext(os.path.basename(p))[0]
-                         + ".lic") for p, _ in srcs]
-        reset_launches(wrappers)
-        answer = io.StringIO()
-        with contextlib.redirect_stdout(io.StringIO()):
-            C.serve(pipe, lines=[f"{verb} {outdir} " + " ".join(paths)],
-                    out=answer, stored_fallback=False, ext=".npy")
-        reply = answer.getvalue().split()
-        assert reply[0] == "ok", reply
-        launches = launch_counts(wrappers)
-        # one launch of each coding kernel per sub-flow per stream layout
-        # (the chunk sizes 1 and 4), in the command's direction only
-        want = 2 * len(set(batches))
-        assert launches == {n: want if (n in DEC) == (verb == "decompress")
-                            else 0 for n in launches}, launches
-        cmds.append({"command": verb, "files": len(srcs),
-                     "ok_s": float(reply[1]), "launches": launches})
+    # one launch of each coding kernel per sub-flow per stream layout (the
+    # chunk sizes 1 and 4), in the command's direction only
+    want = 2 * len(set(batches))
+    reset_launches(wrappers)
+    answer = io.StringIO()
+    with contextlib.redirect_stdout(io.StringIO()):
+        C.serve(pipe, lines=[f"compress {outdir} "
+                             + " ".join(p for p, _ in srcs)],
+                out=answer, stored_fallback=False, ext=".npy")
+    reply = answer.getvalue().split()
+    assert reply[0] == "ok", reply
+    cmds = [{"command": "compress", "process": "serve", "files": len(srcs),
+             "ok_s": float(reply[1]), "launches": launch_counts(wrappers)}]
+    t0 = time.time()
+    child = subprocess.run(
+        [sys.executable, "-c", CLI_CHILD, "decompress", "--config", config,
+         "--ckpt", ckpt, "--input", *lics, "--outdir", outdir,
+         "--no-stored-fallback", "--ext", ".npy"],
+        cwd=ROOT, check=True, capture_output=True, text=True)
+    cmds.append({"command": "decompress", "process": "child",
+                 "files": len(srcs), "s": time.time() - t0,
+                 "launches": json.loads(child.stdout.splitlines()[-1])})
+    for c in cmds:
+        assert c["launches"] == {
+            n: want if (n in DEC) == (c["command"] == "decompress") else 0
+            for n in c["launches"]}, c
     check_decoded(outdir, srcs)
-    lics = [os.path.join(outdir, os.path.splitext(os.path.basename(p))[0]
-                         + ".lic") for p, _ in srcs]
     res = {"phase": "twolevel_cli", "config": TL_CONFIG, "num_streams": 4096,
            "startup_s": startup_s, "commands": cmds,
            "modes": lic_stats(lics), "chunk_batches": sorted(set(batches)),
-           "bit_exact": True,
+           "bit_exact": True, "decoded_in": "child process",
            "kernel_shapes": twolevel_shapes(pipe.codec, sorted(set(batches)))}
     emit(res)
     return res
@@ -1540,6 +1597,268 @@ def phase_pipelines(wrappers):
     return {"vqvae_train": vq, "residual_train": res_train,
             "twolevel": twolevel, "twolevel_train": tl_train,
             "twolevel_cli": tl_cli}
+
+
+# ---------------------------------------------------------------------------
+# phases 14-16: the fine-tuner, the visualizer, growth-padded serving
+# ---------------------------------------------------------------------------
+
+FT_CONFIG = "configs/config-trans-test.yaml"
+VIS_CONFIG = "configs/vis_config_imagenet64.yaml"
+# the phases' checkpoints, logs and grids, removed at the end
+TOOLS_DIR = os.path.join(ROOT, "logs", "chip_smoke_tools")
+
+
+def step_seconds(log_dir, tag):
+    """Median host seconds between consecutive records of `tag` after the
+    first (each record is written right after the step's loss fetch)."""
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        times = [r["time"] for r in map(json.loads, f) if r["tag"] == tag]
+    return statistics.median(b - a for a, b in zip(times[1:], times[2:]))
+
+
+def phase_finetune(wrappers, ckpt: str, steps: int = 8):
+    """configs/config-trans-test.yaml at full width through cli.train (the
+    Finetuner: 64x48x3, nflows 8, nsplit 3, DenseBlocks 512 x 12, batch
+    16, Adam at fine_tune_lr 1e-3), its load_path `ckpt` (the flagship
+    flow's weights: the same architecture, and a flow's weights do not
+    depend on the image size), both loaders on NaturalSynthetic 64x48:
+    `steps` tuning steps saving every 4, a resume check, then 3 steps with
+    fine_tune off."""
+    from finalproject_losslessimagecompression_tpu_torch.cli.train import (
+        apply_overrides,
+        build_trainer,
+        load_config,
+    )
+    from finalproject_losslessimagecompression_tpu_torch.utils.profiling import (  # noqa: E501
+        step_flops,
+    )
+
+    t0 = time.time()
+    d = os.path.join(TOOLS_DIR, "finetune")
+    config = load_config(os.path.join(ROOT, FT_CONFIG))
+    train = config["train"]
+    batch = train["train_dataloader"]["batch_size"]
+    size = tuple(train["train_dataloader"]["resize"])
+    train["train_dataloader"] = natural_loader(size, batch, steps * batch,
+                                               21, True)
+    train["test_dataloader"] = natural_loader(size, batch, batch, 22, False)
+    apply_overrides(config, [
+        f"train.model.load_path={ckpt}", f"train.max_step={steps}",
+        "train.save_interval=4", "train.evaluate_interval=4",
+        f"train.save_path={d}/ft.ckpt", f"train.writer_path={d}/log"])
+    t = build_trainer(config)
+    fill_caches(t)
+    frozen = {k: v.clone() for k, v in t.model.state_dict().items()}
+    x = torch.from_numpy(np.asarray(next(iter(t.testloader)))).cuda()
+    _, flops = step_flops(lambda: t.loss_fn(x).backward())
+    t.tuner_opt.zero_grad()
+    wall, launches, peak_gb = trained(t, wrappers)
+    log = os.path.join(d, "log")
+    bpd = [v for _, v in logged("bpd", log)]
+    assert len(bpd) == steps and all(map(math.isfinite, bpd)), bpd
+    assert all(torch.equal(v, frozen[k])
+               for k, v in t.model.state_dict().items()), "model moved"
+    tuner_max = float(t.tuner.detach().abs().max())
+    assert tuner_max > 0, "the tuner did not move"
+    assert all(v == 0 for v in launches.values()), launches
+    r = build_trainer(apply_overrides(config, ["train.resume=true"]))
+    a, b = t.tuner_opt.state_dict(), r.tuner_opt.state_dict()
+    resume_equal = (r.step == t.step == steps and a["count"] == b["count"]
+                    and torch.equal(r.tuner, t.tuner)
+                    and all(torch.equal(a["state"][0][k], b["state"][0][k])
+                            for k in a["state"][0]))
+    assert resume_equal, "a resumed fine-tuner differs from the saved one"
+    del r
+    m = os.path.join(d, "measure")
+    apply_overrides(config, [
+        "train.resume=false", "train.fine_tune=false", "train.max_step=3",
+        "train.save_interval=1", f"train.save_path={m}/ft.ckpt",
+        f"train.writer_path={m}/log"])
+    f = build_trainer(config)
+    f.train()
+    measured = [v for _, v in logged("bpd", os.path.join(m, "log"))]
+    assert len(measured) == 3 and all(map(math.isfinite, measured))
+    assert float(f.tuner.detach().abs().max()) == 0.0
+    assert not os.path.exists(f.save_path), "measure-only run saved"
+    step_s = step_seconds(log, "bpd")
+    res = {"phase": "finetune", "config": FT_CONFIG, "batch": batch,
+           "image": [t.cfg.H, t.cfg.W, t.cfg.C], "steps": t.step,
+           "wall_s": wall, "step_s": step_s,
+           "train_images_per_s": batch / step_s, **mfu(flops, step_s),
+           "flops_counted": "forward and backward, input gradients only",
+           "peak_mem_gb": peak_gb, "bpd_first": bpd[0], "bpd_last": bpd[-1],
+           "bpd": bpd, "bpd_mean": [v for _, v in logged("bpd mean", log)],
+           "tuner_max_abs": tuner_max, "model_frozen": True,
+           "launches": launches, "resume_equal": resume_equal,
+           "measure_only": {"steps": f.step, "bpd": measured,
+                            "tuner_zero": True, "checkpoint_written": False},
+           "phase_s": time.time() - t0}
+    emit(res)
+    return res
+
+
+def phase_visualize(wrappers, ckpt: str, batch: int = 16, grid: int = 8):
+    """cli.visualize on configs/vis_config_imagenet64.yaml at full width
+    (the flagship 64x64 flow, its load_path `ckpt`): sample grids of
+    `batch` at the four temperatures, each checked by the identity
+    forward(sample) == the latents the sampler drew, then a grid x grid
+    interpolation between four NaturalSynthetic corners."""
+    from finalproject_losslessimagecompression_tpu_torch.cli import (
+        visualize as V,
+    )
+    from finalproject_losslessimagecompression_tpu_torch.cli.train import (
+        load_config,
+    )
+    from finalproject_losslessimagecompression_tpu_torch.models.exact import (
+        set_deterministic_cuda,
+    )
+    from finalproject_losslessimagecompression_tpu_torch.ops.rounding import (
+        round_to_grid,
+    )
+    from finalproject_losslessimagecompression_tpu_torch.train.metrics import (
+        MetricsWriter,
+    )
+
+    t0 = time.time()
+    d = os.path.join(TOOLS_DIR, "visualize")
+    model_cfg = dict(load_config(os.path.join(ROOT, VIS_CONFIG))["train"][
+        "model"], load_path=ckpt)
+    # the identity below compares two evaluations of each prior
+    set_deterministic_cuda()
+    cfg, model = V.load_model(model_cfg)
+    writer = MetricsWriter(d, use_tensorboard=False)
+    noises = V.sample_noise(cfg, batch, torch.Generator(
+        device="cuda").manual_seed(23))
+    V.sample(cfg, model, writer, temperatures=(1.0,), noises=noises)  # warm
+    reset_launches(wrappers)
+    grids, exact = [], True
+    for temp in V.TEMPERATURES:
+        out, secs = timed(lambda: V.sample(cfg, model, writer, noises=noises,
+                                           temperatures=(temp,)))
+        img = out[temp]
+        with torch.no_grad():
+            lat, means, logscales = model(img)
+        drawn = [round_to_grid(n * temp * torch.exp(ls) + m, cfg.nbits)
+                 for n, m, ls in zip(noises, means, logscales)]
+        same = all(torch.equal(a, b) for a, b in zip(lat, drawn))
+        exact = exact and same
+        grids.append({"temperature": temp, "s": secs,
+                      "forward_equals_drawn_latents": same,
+                      "finite": bool(torch.isfinite(img).all())})
+    assert exact, grids
+    corners = natural_images((cfg.H, cfg.W), 4, 24)
+    imgs, interp_s = timed(lambda: V.interpolate(cfg, model, writer, corners,
+                                                 grid=grid))
+    assert tuple(imgs.shape) == (grid * grid, cfg.H, cfg.W, cfg.C)
+    assert bool(torch.isfinite(imgs).all())
+    on_grid = bool(torch.equal(torch.round(imgs * 256), imgs * 256))
+    assert on_grid, "interpolated images are off the 1/256 grid"
+    launches = launch_counts(wrappers)
+    assert all(v == 0 for v in launches.values()), launches
+    img_dir = os.path.join(d, "images")
+    res = {"phase": "visualize", "config": VIS_CONFIG, "batch": batch,
+           "samples": grids, "interpolate": {"grid": grid, "s": interp_s,
+                                             "on_grid": on_grid},
+           "grid_files": sorted(os.listdir(img_dir))
+           if os.path.isdir(img_dir) else [],
+           "pil": importlib.util.find_spec("PIL") is not None,
+           "launches": launches, "phase_s": time.time() - t0}
+    emit(res)
+    return res
+
+
+def growths(model):
+    """The output channels of a flow's 3x3 convs (its priors')."""
+    return sorted({layer.conv3_kernel.shape[0]
+                   for blk in model.priors for layer in blk.net.layers})
+
+
+def phase_padded(wrappers, flagship, e2e, multiples=(16, 64),
+                 batch: int = 16, queue: int = 4):
+    """The e2e serving pass with the e2e phase's weights zero-padded by
+    pad_growth_params into the growth_multiple architecture (the same
+    function with wider 3x3 convs): per multiple, compress_many then
+    decompress_many(fetch=True) on the e2e phase's 4 x 16 queue, bit-exact,
+    one launch of each coding kernel per level, then a torch.profiler pass
+    (`profile_pass`) whose convolution device ms stand beside the e2e
+    phase's profile of the unpadded model; the count of latents that
+    differ from the unpadded model's (reported)."""
+    from finalproject_losslessimagecompression_tpu_torch.models import (
+        FlowCodec,
+        IDFlow,
+        pad_growth_params,
+        with_growth_multiple,
+    )
+
+    t0 = time.time()
+    cfg, model, codec = flagship
+    xs_np = images(batch, queue)
+    xs = [torch.from_numpy(x).cuda() for x in xs_np]
+    with torch.no_grad():
+        base_lat = model(xs[0])[0]
+    base = e2e["profile"]
+    passes = [{"growth_multiple": 0, "conv_device_ms": base["conv_device_ms"],
+               "device_busy_s": base["device_busy_s"],
+               "images_per_s": e2e["images_per_s"],
+               "growth_per_layer": growths(model)}]
+    for mult in multiples:
+        padded = IDFlow(with_growth_multiple(cfg, mult), device="cuda").eval()
+        padded.load_state_dict(pad_growth_params(model.state_dict(), mult))
+        pcodec = FlowCodec(padded, num_streams=8192)
+        # warm-up: the wider convs' cuDNN plans
+        pcodec.decompress_many(pcodec.compress_many(xs), fetch=True)
+        reset_launches(wrappers)
+        t1 = time.time()
+        packed = pcodec.compress_many(xs)
+        recs = pcodec.decompress_many(packed, fetch=True)
+        wall = time.time() - t1
+        launches = launch_counts(wrappers)
+        assert all(v == cfg.nsplit for v in launches.values()), launches
+        assert all(np.array_equal(r, x) for r, x in zip(recs, xs_np)), \
+            f"growth_multiple {mult}: round trip is not bit-exact"
+        with torch.no_grad():
+            lat = padded(xs[0])[0]
+        differ = sum(int((a != b).sum()) for a, b in zip(lat, base_lat))
+        prof = profile_pass(
+            lambda: pcodec.decompress_many(pcodec.compress_many(xs),
+                                           fetch=True),
+            wall, phase=f"padded_profile_{mult}", top=8)
+        passes.append({
+            "growth_multiple": mult, "bit_exact": True,
+            "images_per_s": batch * queue / wall, "wall_s": wall,
+            "real_bpd": float(np.mean([pcodec.real_bpd(b, i)
+                                       for b, i in packed])),
+            "launches": launches, "latents_differing": differ,
+            "latents_total": sum(t.numel() for t in lat),
+            "conv_device_ms": prof["conv_device_ms"],
+            "device_busy_s": prof["device_busy_s"],
+            "device_idle_share_unprofiled":
+            prof["device_idle_share_unprofiled"],
+            "growth_per_layer": growths(padded)})
+        del padded, pcodec
+    res = {"phase": "padded", "batch": batch, "queue": queue,
+           "passes": passes,
+           "launches": {str(p["growth_multiple"]): p["launches"]
+                        for p in passes[1:]},
+           "kernel_shapes": coded_shapes(codec, [batch]),
+           "phase_s": time.time() - t0}
+    emit(res)
+    return res
+
+
+def phase_tools(wrappers, e2e):
+    """Phases 14-16 on the flagship flow's seeded weights (phase 4's),
+    saved once as the fine-tuner's and the visualizer's checkpoint; their
+    files removed at the end."""
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    flagship = flagship_codec()
+    ckpt = save_params(flagship[1], os.path.join(TOOLS_DIR, "flow.ckpt"))
+    out = {"finetune": phase_finetune(wrappers, ckpt),
+           "visualize": phase_visualize(wrappers, ckpt),
+           "padded": phase_padded(wrappers, flagship, e2e)}
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1585,7 +1904,7 @@ def phase_large(depth_ns, n: int = 8 * 2**20):
 # ---------------------------------------------------------------------------
 
 
-def kernels_line(rows, e2e, train, cli, residual, pipes):
+def kernels_line(rows, e2e, train, cli, residual, pipes, tools):
     head = [r for r in rows if r["S"] == 384 and not r["seeded"]][0]
     out = []
     for key, name, replaces, extra in (
@@ -1619,6 +1938,9 @@ def kernels_line(rows, e2e, train, cli, residual, pipes):
                 {c["command"]: c["launches"][name]
                  for c in pipes["twolevel_cli"]["commands"]} if pipes
                 else None),
+            "launches_padded": (
+                {m: v[name] for m, v in tools["padded"]["launches"].items()}
+                if tools else None),
             "max_abs_err": max(r[key]["max_abs_err"] for r in rows),
             "matches_plain": all(r[key]["max_abs_err"] == 0 for r in rows),
             "ms": h["ms"], "plain_ms": h["plain_ms"],
@@ -1642,7 +1964,7 @@ def main(argv) -> int:
     smi = phase_device()
     depth_ns = phase_depth()
     rows, _, _ = phase_kernels(depth_ns)
-    e2e = train = cli = residual = pipes = None
+    e2e = train = cli = residual = pipes = tools = None
     if "--quick" not in argv:
         e2e = phase_e2e()
         train = phase_train(kernel_wrappers())
@@ -1653,7 +1975,9 @@ def main(argv) -> int:
                             pipes["twolevel"], pipes["twolevel_cli"]),
                      depth_ns)
         rows.append(phase_large(depth_ns))
-    emit(kernels_line(rows, e2e, train, cli, residual, pipes))
+        tools = phase_tools(kernel_wrappers(), e2e)
+        path_kernels(rows, (tools["padded"],), depth_ns)
+    emit(kernels_line(rows, e2e, train, cli, residual, pipes, tools))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

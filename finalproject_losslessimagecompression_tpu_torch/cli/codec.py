@@ -182,12 +182,14 @@ def _fingerprint(model_cfg: dict, variant: str, *ckpt_paths: str) -> str:
     return h.hexdigest()[:16]
 
 
-def _restore(module, ckpt_path: str, device):
-    """Load a `{"params": state_dict}` checkpoint into the module."""
+def _restore(module, ckpt_path: str, device, convert):
+    """Load a checkpoint's params into the module: a `{"params":
+    state_dict}` file of this package, or a JAX package checkpoint through
+    `convert`, the module's converter."""
     from ..train.checkpoint import load_params
 
     try:
-        module.load_state_dict(load_params(ckpt_path, device))
+        module.load_state_dict(load_params(ckpt_path, device, convert))
     except ValueError as err:
         raise SystemExit(str(err)) from None
     return module.eval()
@@ -215,6 +217,11 @@ def _load_model(config_path: str, ckpt_path: str, num_streams: int,
 
 def _load_model_timed(config_path, ckpt_path, num_streams, vq_ckpt, dtype,
                       device):
+    from ..convert import (
+        params_from_flax,
+        twolevel_params_from_flax,
+        vqvae_params_from_flax,
+    )
     from ..models import (
         FlowCodec,
         IDFlow,
@@ -246,9 +253,10 @@ def _load_model_timed(config_path, ckpt_path, num_streams, vq_ckpt, dtype,
         vq_ckpt = vq_ckpt or vq_cfg.get("checkpoint")
         if not vq_ckpt:
             raise SystemExit("no VQ-VAE checkpoint (config or --vq-ckpt)")
-        model = _restore(IDFlow(cfg, device=device), ckpt_path, device)
+        model = _restore(IDFlow(cfg, device=device), ckpt_path, device,
+                         params_from_flax)
         vqvae = _restore(build_vqvae_from_ref(vq_cfg, device=device),
-                         vq_ckpt, device)
+                         vq_ckpt, device, vqvae_params_from_flax)
         res = ResidualCodec(vqvae, FlowCodec(model, num_streams=num_streams),
                             tuple(train["input_size"]))
         fp = _fingerprint(flows, _variant_tag(cfg, device), ckpt_path,
@@ -259,12 +267,14 @@ def _load_model_timed(config_path, ckpt_path, num_streams, vq_ckpt, dtype,
     model_cfg.pop("load_path", None)
     if model_cfg.get("name") == "TwoLevelFlows":
         tcfg = TwoLevelCfg.from_ref(model_cfg)
-        model = _restore(TwoLevelFlow(tcfg, device=device), ckpt_path, device)
+        model = _restore(TwoLevelFlow(tcfg, device=device), ckpt_path, device,
+                         twolevel_params_from_flax)
         fp = _fingerprint(model_cfg, _variant_tag(tcfg, device), ckpt_path)
         return _TwoLevelPipeline(
             TwoLevelCodec(model, num_streams=num_streams), fp)
     cfg = FlowCfg.from_ref(model_cfg)
-    model = _restore(IDFlow(cfg, device=device), ckpt_path, device)
+    model = _restore(IDFlow(cfg, device=device), ckpt_path, device,
+                     params_from_flax)
     fp = _fingerprint(model_cfg, _variant_tag(cfg, device), ckpt_path)
     return _PlainPipeline(FlowCodec(model, num_streams=num_streams), fp)
 

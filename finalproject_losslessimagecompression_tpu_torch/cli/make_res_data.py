@@ -23,6 +23,7 @@ import argparse
 import numpy as np
 import torch
 
+from ..convert import vqvae_params_from_flax
 from ..data import loader as _loader  # noqa: F401  (registers loaders)
 from ..models.idflow import resolve_device
 from ..models.vqvae import build_vqvae_from_ref
@@ -41,7 +42,7 @@ def make_res_data(config: dict, out: str, max_batches: int = 0,
     vq_cfg = dict(tc["vqvae"])
     ckpt = vq_cfg.pop("checkpoint")
     vqvae = build_vqvae_from_ref(vq_cfg, device=device)
-    vqvae.load_state_dict(load_params(ckpt, device))
+    vqvae.load_state_dict(load_params(ckpt, device, vqvae_params_from_flax))
     vqvae.eval()
     loader = build(DATALOADERS, dict(tc[split]))
     residuals, recs = [], []

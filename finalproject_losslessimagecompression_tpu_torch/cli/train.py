@@ -4,10 +4,10 @@
         --config configs/<name>.yaml [--set dotted.path=value ...] [--device cpu]
 
 One --config YAML whose `train` subtree selects a trainer by name
-(`train.trainer`: Trainer, the default, VQVAETrainer, ResidualTrainer or
-TwoLevelTrainer) and passes the rest as constructor kwargs; the same files
-drive the JAX package's trainers.  The YAML is read by
-the port's own subset reader (`cli/yamlite.py`), so training needs no
+(`train.trainer`: Trainer, the default, VQVAETrainer, ResidualTrainer,
+TwoLevelTrainer or Finetuner) and passes the rest as constructor kwargs;
+the same files drive the JAX package's trainers.  The YAML is read by the
+port's own subset reader (`cli/yamlite.py`), so training needs no
 PyYAML.  The trainer runs on the card unless `--device cpu` is given.
 """
 
@@ -17,19 +17,12 @@ import argparse
 import json
 
 from ..registry import TRAINERS
+from ..train import finetuner as _finetuner  # noqa: F401 (registers)
 from ..train import residual_trainer as _residual  # noqa: F401 (registers)
 from ..train import trainer as _trainer  # noqa: F401 (registers Trainer)
 from ..train import twolevel_trainer as _twolevel  # noqa: F401 (registers)
 from ..train import vqvae_trainer as _vqvae  # noqa: F401 (registers)
 from . import yamlite
-
-# trainers of the JAX package that the port does not have yet, with the
-# ROADMAP queue 1 item that ports each
-NOT_PORTED = {
-    "Finetuner": "item 13 (fine-tuner)",
-    "FineTuner": "item 13 (fine-tuner)",
-}
-
 
 def load_config(path: str) -> dict:
     return yamlite.load(path)
@@ -71,10 +64,6 @@ def apply_overrides(config: dict, sets) -> dict:
 def build_trainer(config: dict, device=None):
     train_cfg = dict(config["train"])
     name = train_cfg.pop("trainer", "Trainer")
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"{name} is not ported to PyTorch yet: ROADMAP queue 1, "
-            f"{NOT_PORTED[name]}")
     return TRAINERS.get(name)(**train_cfg, device=device)
 
 

@@ -13,13 +13,16 @@ CDF(lower + 2047) = M.
 
 `cdf_bits` uses the same explicit float32 op sequence as the JAX package's
 `codec/cdf.py`, and the CUDA kernels (csrc/rans_kernels.cu) repeat it with
-contraction disabled.  `exp` is not bit-equal across backends, so the coder
-treats the evaluation backend as part of the stream contract: a container
-decodes on the backend that encoded it.
+contraction disabled.  `cdf_bits_np` / `symbol_freq_np` are the numpy
+twins (the JAX package's, op for op), which the single-stream oracle
+(`codec/oracle.py`) evaluates.  `exp` is not bit-equal across backends, so
+the coder treats the evaluation backend as part of the stream contract: a
+container decodes on the backend that encoded it.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 PRECISION_BITS = 24
@@ -50,3 +53,33 @@ def cdf_bits(v: torch.Tensor, mean: torch.Tensor, scale: torch.Tensor,
     part1 = torch.round(sig * _PMAX).to(torch.int32)
     part2 = v - lower + 1
     return (part1 + part2).to(torch.int64)
+
+
+def lower_bin_np(mean) -> np.ndarray:
+    """`lower_bin` in numpy."""
+    m = np.asarray(mean, dtype=np.float32)
+    return np.round(m * np.float32(GRID)).astype(np.int32) - np.int32(
+        NBINS // 2)
+
+
+def cdf_bits_np(v, mean, scale, lower) -> np.ndarray:
+    """`cdf_bits` in numpy float32, as uint32 (the JAX package's
+    `cdf_bits_np`)."""
+    v = np.asarray(v, np.int32)
+    mean = np.asarray(mean, np.float32)
+    scale = np.asarray(scale, np.float32)
+    lower = np.asarray(lower, np.int32)
+    with np.errstate(over="ignore"):
+        vf = v.astype(np.float32) * np.float32(_INV_GRID)
+        t = (vf + np.float32(_HALF_BIN) - mean) / scale
+        sig = np.float32(1.0) / (np.float32(1.0) + np.exp(-t))
+        part1 = np.round(sig * np.float32(_PMAX)).astype(np.int32)
+    return (part1 + (v - lower + np.int32(1))).astype(np.uint32)
+
+
+def symbol_freq_np(v, mean, scale):
+    """(cdf_start, freq) of bin v in numpy."""
+    lower = lower_bin_np(mean)
+    v = np.asarray(v, np.int32)
+    start = cdf_bits_np(v - 1, mean, scale, lower)
+    return start, cdf_bits_np(v, mean, scale, lower) - start

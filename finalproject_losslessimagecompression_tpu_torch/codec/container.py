@@ -292,3 +292,8 @@ def unpack_streams(blob: bytes) -> EncodedStreams:
         oow_vals=oow_vals,
         donated=int(min(D, W)),
     )
+
+
+def stream_bits(blob: bytes) -> int:
+    """Coded bits of one container."""
+    return 8 * len(blob)

@@ -154,8 +154,14 @@ _SECOND_MOMENT = {"Adamax": "exp_inf", "Adam": "exp_avg_sq"}
 
 
 def _adam_state(node):
-    """The ScaleByAdamState (count, mu, nu) inside an optax state."""
-    if hasattr(node, "mu") and hasattr(node, "nu"):
+    """The ScaleByAdamState (count, mu, nu) inside an optax state: the
+    NamedTuples of a live state, or the nested dicts (keyed "0", "1", ...)
+    that a msgpack checkpoint restores them as."""
+    if isinstance(node, dict):
+        if "mu" in node and "nu" in node:
+            return node
+        node = list(node.values())
+    elif hasattr(node, "mu") and hasattr(node, "nu"):
         return node
     if isinstance(node, (tuple, list)):
         for sub in node:
@@ -165,13 +171,18 @@ def _adam_state(node):
     return None
 
 
+def _field(state, name: str):
+    return state[name] if isinstance(state, dict) else getattr(state, name)
+
+
 def opt_state_from_optax(opt_state, names: Iterable, name: str = "Adamax",
                          convert: Callable = params_from_flax):
     """The port optimizer's state_dict from an optax Adamax/Adam state.
 
     `opt_state` is the JAX trainer's optimizer state with numpy leaves (what
-    `jax.device_get` returns; a chain with `clip_by_global_norm` in front
-    is fine); `names` are the port model's parameter names in the
+    `jax.device_get` returns, or the nested dicts `train.msgpack` reads
+    from a checkpoint; a chain with `clip_by_global_norm` in front is
+    fine); `names` are the port model's parameter names in the
     optimizer's order (`[n for n, _ in model.named_parameters()]`, or the
     pairs themselves); `name` is the optimizer's config name; `convert`
     maps a moment tree as it maps the parameter tree.  Moments of entries
@@ -180,7 +191,7 @@ def opt_state_from_optax(opt_state, names: Iterable, name: str = "Adamax",
     st = _adam_state(opt_state)
     if st is None or name not in _SECOND_MOMENT:
         raise ValueError(f"no {name} moments in this optax state")
-    mu, nu = convert(st.mu), convert(st.nu)
+    mu, nu = convert(_field(st, "mu")), convert(_field(st, "nu"))
     names = [n if isinstance(n, str) else n[0] for n in names]
     missing = set(names) - set(mu)
     extra = {k for k in set(mu) - set(names) if not k.endswith(
@@ -188,7 +199,7 @@ def opt_state_from_optax(opt_state, names: Iterable, name: str = "Adamax",
     if missing or extra:
         raise KeyError("optax moments do not match the parameter names: "
                        f"{sorted(missing | extra)}")
-    count = int(np.asarray(st.count))
+    count = int(np.asarray(_field(st, "count")))
     state = {
         i: {"step": torch.tensor(float(count)), "exp_avg": mu[n],
             _SECOND_MOMENT[name]: nu[n]}

@@ -5,8 +5,15 @@ from .config import (
     LevelPlan,
     latent_shapes,
     level_plans,
+    with_growth_multiple,
 )
-from .layers import DenseBlock, DenseLayer, ResBlock, activation
+from .layers import (
+    DenseBlock,
+    DenseLayer,
+    ResBlock,
+    activation,
+    pad_growth_params,
+)
 from .invertible import (
     AdditiveCoupling,
     Prior,
@@ -28,10 +35,12 @@ __all__ = [
     "LevelPlan",
     "latent_shapes",
     "level_plans",
+    "with_growth_multiple",
     "DenseBlock",
     "DenseLayer",
     "ResBlock",
     "activation",
+    "pad_growth_params",
     "AdditiveCoupling",
     "Prior",
     "coupling_split",

@@ -9,7 +9,7 @@ packages.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Tuple
 
 
@@ -167,3 +167,16 @@ def level_plans(cfg: FlowCfg) -> Tuple[LevelPlan, ...]:
 def latent_shapes(cfg: FlowCfg) -> Tuple[Tuple[int, int, int], ...]:
     """NHWC latent shapes per split level."""
     return tuple((p.h, p.w, p.z_ch) for p in level_plans(cfg))
+
+
+def with_growth_multiple(cfg: FlowCfg, multiple: int) -> FlowCfg:
+    """The same flow config with every DenseBlock's per-layer growth
+    rounded up to a multiple of `multiple` output channels per 3x3 conv.
+    Pair with `models.layers.pad_growth_params` to run a trained
+    checkpoint through the wider architecture as the same function."""
+    return replace(
+        cfg,
+        couple=replace(cfg.couple,
+                       nn=replace(cfg.couple.nn, growth_multiple=multiple)),
+        prior_nn=replace(cfg.prior_nn, growth_multiple=multiple),
+    )

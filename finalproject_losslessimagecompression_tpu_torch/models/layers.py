@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..registry import ACTIVATIONS
 from .config import DenseBlockCfg
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -33,6 +34,8 @@ def activation(name: str):
         return torch.tanh
     if name == "LeakyReLU":
         return F.leaky_relu  # negative slope 0.01, as in flax
+    if name in ACTIVATIONS:
+        return ACTIVATIONS.get(name)
     raise KeyError(f"unknown activation {name!r}")
 
 
@@ -135,6 +138,63 @@ class DenseBlock(nn.Module):
             x = layer(x)
         out = F.conv2d(x, self.proj.weight.to(dt), self.proj.bias.to(dt))
         return out.to(torch.float32)
+
+
+_LAYER0 = "layers.0.conv1_kernel"
+
+
+def pad_growth_params(state_dict, multiple: int):
+    """Zero-pad every DenseBlock's growth channels in a state_dict of this
+    package (an IDFlow's, or any model's holding DenseBlocks) so that it
+    loads into the same model built with `growth_multiple=multiple`
+    (`models.config.with_growth_multiple`), as the same function.
+
+    Each layer's 3x3 conv gets zero output channels up to a multiple of
+    `multiple`; they emit exactly 0.0, act(0) = 0 for ReLU, LeakyReLU and
+    Tanh, and every weight that reads a padded channel downstream is zero.
+    The padding is appended per layer, so a layer's original input
+    channels stop being contiguous after the second layer: `old_idx`
+    tracks where the unpadded stream's channels sit in the padded one.
+    Other entries pass through unchanged."""
+    out = dict(state_dict)
+    for key in state_dict:
+        if key.endswith(_LAYER0):
+            out.update(_pad_block(state_dict, key[:-len(_LAYER0)], multiple))
+    return out
+
+
+def _pad_block(sd, prefix: str, multiple: int):
+    old_idx = torch.arange(sd[prefix + _LAYER0].shape[0])
+    width = len(old_idx)
+    out = {}
+    i = 0
+    while f"{prefix}layers.{i}.conv1_kernel" in sd:
+        p = f"{prefix}layers.{i}."
+        w1, b1, w3, b3 = (sd[p + n] for n in (
+            "conv1_kernel", "conv1_bias", "conv3_kernel", "conv3_bias"))
+        if w1.shape[0] != len(old_idx):
+            raise ValueError(f"{p}conv1_kernel has {w1.shape[0]} channels, "
+                             f"the block's stream {len(old_idx)}")
+        g = w3.shape[0]
+        gp = -(-g // multiple) * multiple
+        w1p = w1.new_zeros((width, width, 1, 1))
+        w1p[old_idx[:, None], old_idx[None, :]] = w1
+        b1p = b1.new_zeros(width)
+        b1p[old_idx] = b1
+        w3p = w3.new_zeros((gp, width) + tuple(w3.shape[2:]))
+        w3p[:g, old_idx] = w3
+        b3p = b3.new_zeros(gp)
+        b3p[:g] = b3
+        out.update({p + "conv1_kernel": w1p, p + "conv1_bias": b1p,
+                    p + "conv3_kernel": w3p, p + "conv3_bias": b3p})
+        old_idx = torch.cat([old_idx, width + torch.arange(g)])
+        width += gp
+        i += 1
+    k = sd[prefix + "proj.weight"]
+    kp = k.new_zeros((k.shape[0], width) + tuple(k.shape[2:]))
+    kp[:, old_idx] = k
+    out[prefix + "proj.weight"] = kp
+    return out
 
 
 def flax_conv(in_ch: int, out_ch: int, k: int, stride: int = 1,

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..registry import ENDECODERS
 from .idflow import resolve_device
 from .layers import BatchNorm, ResBlock, flax_conv
 
@@ -85,6 +86,7 @@ def vq_reinit(codebook: torch.Tensor, counts: torch.Tensor,
     return new_codebook, new_counts, do, low.to(torch.int32).sum()
 
 
+@ENDECODERS.register(name="VQEncoder")
 class VQEncoder(nn.Module):
     """NHWC [B, H, W, C] -> [B, H / 2^len(hidden_dims), ..., out_channel].
     Sub-modules are listed in the flax module's creation order (`convs`:
@@ -119,6 +121,7 @@ class VQEncoder(nn.Module):
         return _nhwc(torch.tanh(self.convs[-1](x)))
 
 
+@ENDECODERS.register(name="VQDecoder")
 class VQDecoder(nn.Module):
     """NHWC latents -> NHWC images (x 2^len(hidden_dims)); `hidden_dims` is
     the encoder's reversed.  `convs`: Conv_0 (1x1), Conv_1 (3x3);
@@ -156,6 +159,7 @@ class VQDecoder(nn.Module):
         return _nhwc(torch.tanh(self.deconvs[-1](x)))
 
 
+@ENDECODERS.register(name="VQVAE")
 class VQVAE(nn.Module):
     def __init__(self, channel: int = 3, embed_num: int = 4096,
                  embed_dim: int = 512,

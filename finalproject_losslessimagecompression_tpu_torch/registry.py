@@ -1,9 +1,7 @@
 """Name -> constructor registries driving the YAML config system.
 
 The port's own copy of the JAX package's `registry.py` (framework-free, but
-the port imports nothing of that package).  Only the registries the ported
-slices fill are declared: distributions, datasets, data loaders,
-optimizers, schedulers and trainers.
+the port imports nothing of that package), with the same registries.
 """
 
 from __future__ import annotations
@@ -18,15 +16,20 @@ class Registry:
         self.namespace = namespace
         self._record: Dict[str, Callable] = {}
 
-    def register(self, *, name: str):
+    def register(self, obj: Callable = None, *, name: str = None):
+        """`@register`, `@register(name=...)` or `register(obj)`: records
+        obj under `name`, by default its `__name__`."""
         def _do(o):
-            if name in self._record and self._record[name] is not o:
+            key = name or o.__name__
+            if key in self._record and self._record[key] is not o:
                 raise KeyError(
-                    f"{self.namespace}: duplicate registration {name!r}")
-            self._record[name] = o
+                    f"{self.namespace}: duplicate registration {key!r}")
+            self._record[key] = o
             return o
 
-        return _do
+        if obj is None:
+            return _do
+        return _do(obj)
 
     def get(self, name: str) -> Callable:
         try:
@@ -37,8 +40,23 @@ class Registry:
                 f"known: {sorted(self._record)}"
             ) from None
 
+    def __contains__(self, name: str) -> bool:
+        return name in self._record
 
+    def names(self):
+        return sorted(self._record)
+
+
+FLOWS = Registry("flows")
+COUPLINGS = Registry("couplings")
+PRIORS = Registry("priors")
 DISTRIBUTIONS = Registry("distributions")
+ROUNDS = Registry("rounds")
+EXTENDDIMS = Registry("extenddims")
+LAYERS = Registry("layers")
+BLOCKS = Registry("blocks")
+ENDECODERS = Registry("endecoders")
+ACTIVATIONS = Registry("activations")
 DATASETS = Registry("datasets")
 DATALOADERS = Registry("dataloaders")
 OPTIMIZERS = Registry("optimizers")

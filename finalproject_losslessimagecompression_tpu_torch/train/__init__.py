@@ -1,9 +1,12 @@
-"""Training: optimizers and schedules, checkpoints, metrics, the flow,
-VQ-VAE, residual and two-level trainers."""
+"""Training: optimizers and schedules, checkpoints (either package's),
+metrics, the flow, VQ-VAE, residual and two-level trainers and the
+fine-tuner."""
 
 from . import optim  # registers optimizers/schedulers
 from .checkpoint import load_checkpoint, load_params, save_checkpoint
+from .finetuner import Finetuner
 from .metrics import MetricsWriter
+from .msgpack import load_raw, msgpack_restore
 from .optim import Optimizer, build_optimizer, warmup_exp_schedule
 from .residual_trainer import ResidualTrainer
 from .trainer import Trainer
@@ -14,6 +17,8 @@ __all__ = [
     "optim",
     "load_checkpoint",
     "load_params",
+    "load_raw",
+    "msgpack_restore",
     "save_checkpoint",
     "MetricsWriter",
     "Optimizer",
@@ -23,4 +28,5 @@ __all__ = [
     "VQVAETrainer",
     "ResidualTrainer",
     "TwoLevelTrainer",
+    "Finetuner",
 ]

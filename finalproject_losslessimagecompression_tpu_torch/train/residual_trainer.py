@@ -32,6 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..convert import params_from_flax, vqvae_params_from_flax
 from ..data import loader as _loader  # noqa: F401  (registers loaders)
 from ..models.config import FlowCfg
 from ..models.exact import FlowCodec
@@ -42,7 +43,7 @@ from ..ops.reshape import patch_merge, patch_split
 from ..ops.rounding import round_to_grid
 from ..registry import DATALOADERS, TRAINERS, build
 from ..utils.profiling import StepClock
-from .checkpoint import load_checkpoint, load_params, save_checkpoint
+from .checkpoint import load_params, restore_train_state, save_checkpoint
 from .metrics import MetricsWriter
 from .optim import build_optimizer
 from .trainer import at_interval, refuse_mesh
@@ -94,7 +95,8 @@ class ResidualTrainer:
             vqvae = dict(vqvae)
             ckpt = vqvae.pop("checkpoint")
             self.vqvae = build_vqvae_from_ref(vqvae, device=self.device)
-            self.vqvae.load_state_dict(load_params(ckpt, self.device))
+            self.vqvae.load_state_dict(load_params(
+                ckpt, self.device, vqvae_params_from_flax))
             self.vqvae.eval().requires_grad_(False)
 
         self.input_size = tuple(input_size)
@@ -134,9 +136,8 @@ class ResidualTrainer:
         save_checkpoint(path or self.save_path, self._state())
 
     def restore(self, path: str):
-        st = load_checkpoint(path, self.device)
-        self.model.load_state_dict(st["params"])
-        self.optimizer.load_state_dict(st["opt_state"])
+        st = restore_train_state(path, self.model, self.optimizer,
+                                 params_from_flax)
         self.step = int(st["step"])
 
     # -- steps ------------------------------------------------------------

@@ -30,6 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..convert import params_from_flax
 from ..data import loader as _loader  # noqa: F401  (registers loaders)
 from ..models.config import FlowCfg, latent_shapes
 from ..models.exact import FlowCodec
@@ -37,7 +38,7 @@ from ..models.idflow import IDFlow, log_likelihood, resolve_device
 from ..ops.dlogistic import dlogistic_sample
 from ..registry import DATALOADERS, TRAINERS, build
 from ..utils.profiling import PhaseTimer, device_peak_tflops, fence, step_flops
-from .checkpoint import load_checkpoint, save_checkpoint
+from .checkpoint import restore_train_state, save_checkpoint
 from .metrics import MetricsWriter
 from .optim import build_optimizer
 
@@ -148,9 +149,8 @@ class Trainer:
         save_checkpoint(path or self.save_path, self._state())
 
     def restore(self, path: str):
-        st = load_checkpoint(path, self.device)
-        self.model.load_state_dict(st["params"])
-        self.optimizer.load_state_dict(st["opt_state"])
+        st = restore_train_state(path, self.model, self.optimizer,
+                                 params_from_flax)
         self.step = int(st["step"])
 
     # -- steps ------------------------------------------------------------

@@ -20,6 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..convert import twolevel_params_from_flax
 from ..data import loader as _loader  # noqa: F401  (registers loaders)
 from ..models.config import latent_shapes
 from ..models.idflow import log_likelihood, resolve_device
@@ -28,7 +29,7 @@ from ..models.twolevel_codec import TwoLevelCodec
 from ..ops.dlogistic import dlogistic_sample
 from ..registry import DATALOADERS, TRAINERS, build
 from ..utils.profiling import StepClock
-from .checkpoint import load_checkpoint, save_checkpoint
+from .checkpoint import restore_train_state, save_checkpoint
 from .metrics import MetricsWriter
 from .optim import build_optimizer
 from .trainer import at_interval, refuse_mesh
@@ -98,9 +99,8 @@ class TwoLevelTrainer:
         save_checkpoint(path or self.save_path, self._state())
 
     def restore(self, path: str):
-        st = load_checkpoint(path, self.device)
-        self.model.load_state_dict(st["params"])
-        self.optimizer.load_state_dict(st["opt_state"])
+        st = restore_train_state(path, self.model, self.optimizer,
+                                 twolevel_params_from_flax)
         self.step = int(st["step"])
 
     # -- steps ------------------------------------------------------------

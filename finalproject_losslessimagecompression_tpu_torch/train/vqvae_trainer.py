@@ -21,13 +21,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..convert import vqvae_params_from_flax
 from ..data import loader as _loader  # noqa: F401  (registers loaders)
 from ..models.idflow import resolve_device
 from ..models.vqvae import build_vqvae_from_ref, vq_reinit, vqvae_reinit_params
 from ..ops import distributions as _distributions  # noqa: F401  (registers)
 from ..registry import DATALOADERS, DISTRIBUTIONS, TRAINERS, build
 from ..utils.profiling import StepClock
-from .checkpoint import load_checkpoint, save_checkpoint
+from .checkpoint import restore_train_state, save_checkpoint
 from .metrics import MetricsWriter
 from .optim import build_optimizer
 from .trainer import at_interval, refuse_mesh
@@ -102,11 +103,11 @@ class VQVAETrainer:
         save_checkpoint(path or self.save_path, self._state())
 
     def restore(self, path: str):
-        st = load_checkpoint(path, self.device)
-        self.model.load_state_dict(st["params"])
-        self.optimizer.load_state_dict(st["opt_state"])
+        st = restore_train_state(path, self.model, self.optimizer,
+                                 vqvae_params_from_flax)
         self.step = int(st["step"])
-        self.counts = st["counts"]
+        self.counts = torch.as_tensor(st["counts"], dtype=self.counts.dtype,
+                                      device=self.device)
 
     # -- steps ------------------------------------------------------------
 

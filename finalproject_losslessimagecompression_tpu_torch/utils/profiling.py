@@ -1,6 +1,7 @@
 """Timing and FLOP accounting for the trainer.
 
-- `PhaseTimer`: accumulating host wall-clock spans with a report.
+- `PhaseTimer`: accumulating host wall-clock spans with a report and a
+  one-line summary.
 - `StepClock`: host seconds per training step between log points.
 - `fence(device)`: `torch.cuda.synchronize()` on the card (PyTorch returns
   before the device finishes, so a timed region must end in one), nothing
@@ -12,11 +13,19 @@
   runs on an H100 SXM (NVIDIA's data sheet, dense): float32 runs on the
   CUDA cores at 67 TFLOP/s (the trainer's codec pins TF32 off), bfloat16
   989.  None off the card or on another card.
+- `device_trace(logdir)`: a torch.profiler context over a block (host
+  operations and, on the card, its kernels) that writes a Chrome trace.
+
+The JAX package's `enable_compile_cache` (XLA's persistent compilation
+cache) has no counterpart here: eager PyTorch compiles no program, and the
+port's native libraries are already built once per source hash into the
+package's `build/` (`codec/native.py`).
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
 from typing import Dict, Iterator, Optional, Tuple
@@ -49,6 +58,12 @@ class PhaseTimer:
                 "mean_s": self.totals[k] / max(self.counts[k], 1)}
             for k in self.totals
         }
+
+    def summary(self) -> str:
+        return "  ".join(
+            f"{k}: {v['total_s']:.3f}s/{v['count']}"
+            for k, v in sorted(self.report().items())
+        )
 
 
 class StepClock:
@@ -94,3 +109,19 @@ def device_peak_tflops(device, dtype: str = "float32"
     if "H100" not in name or "PCIe" in name:
         return None, None
     return _H100_PEAK_TFLOPS[dtype], f"H100 SXM {dtype} dense"
+
+
+@contextlib.contextmanager
+def device_trace(logdir: str) -> Iterator[object]:
+    """torch.profiler over the block -- host operations, and the card's
+    kernels where CUDA is available -- yielding the profiler; its Chrome
+    trace (chrome://tracing, Perfetto) is written to logdir/trace.json."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))

@@ -103,12 +103,33 @@ def test_port_imports_no_jax(tmp_path):
     """Every port module and the root chip scripts import without jax, flax
     or the JAX package (checked in a fresh interpreter).  In the same
     interpreter yaml, PIL, msgpack, optax and tensorboard -- packages the
-    card's machine does not have -- are blocked at import, and the training
-    CLI still trains one CPU step with eval coding and saves."""
+    card's machine does not have -- are blocked at import; the training
+    CLI still trains one CPU step with eval coding and saves, and a JAX
+    msgpack checkpoint that this process wrote with flax loads into the
+    port's IDFlow with the same weights."""
+    from finalproject_losslessimagecompression_tpu import models as JM
+    from finalproject_losslessimagecompression_tpu.train import (
+        checkpoint as jckpt,
+    )
+    from finalproject_losslessimagecompression_tpu_torch.convert import (
+        params_from_flax,
+    )
+
+    nn = JM.DenseBlockCfg(8, 2, "ReLU")
+    cfg_args = "H=16, W=16, C=3, nflows=1, nsplit=2"
+    jm = JM.IDFlow(JM.FlowCfg(H=16, W=16, C=3, nflows=1, nsplit=2,
+                              couple=JM.CouplingCfg(0.75, nn), prior_nn=nn))
+    params = jax.device_get(jax.jit(jm.init)(jax.random.PRNGKey(0),
+                                             jnp.zeros((1, 16, 16, 3))))
+    jpath = str(tmp_path / "flow.msgpack")
+    jckpt.save_checkpoint(jpath, {"params": params, "step": 5})
+    want = sum(float(v.double().sum()) for v in
+               params_from_flax(params).values())
     mods = [
         f"{PORT}.{m}" for m in (
             "codec", "codec.cdf", "codec.interleaved", "codec.native",
-            "codec.cuda_rans", "codec.container", "codec.coder", "ops", "ops.rounding",
+            "codec.cuda_rans", "codec.container", "codec.coder",
+            "codec.oracle", "codec.host_rans", "ops", "ops.rounding",
             "ops.reshape", "ops.dlogistic", "models", "models.config",
             "models.layers", "models.invertible", "models.idflow",
             "models.exact", "models.vqvae", "models.residual_codec",
@@ -117,10 +138,11 @@ def test_port_imports_no_jax(tmp_path):
             "data.loader", "train", "train.optim", "train.metrics",
             "train.checkpoint", "train.trainer", "train.vqvae_trainer",
             "train.residual_trainer", "train.twolevel_trainer",
-            "utils.profiling", "cli.yamlite", "cli.train", "cli.codec",
-            "cli.make_res_data",
+            "train.msgpack", "train.finetuner", "utils.profiling",
+            "utils.plot_metrics", "cli.yamlite", "cli.train", "cli.codec",
+            "cli.make_res_data", "cli.visualize", "cli.baselines",
         )
-    ] + [PORT, "chip_smoke", "chip_decode_variants"]
+    ] + [PORT, "chip_smoke", "chip_decode_variants", "chip_profile_read"]
     blocked = ("yaml", "PIL", "msgpack", "optax", "tensorboard",
                "tensorflow")
     sets = ["max_step=1", "step_per_epoch=1", "evaluate_interval=1",
@@ -145,12 +167,24 @@ def test_port_imports_no_jax(tmp_path):
         + check
         + f"t = {PORT}.cli.train.main({argv!r})\n"
         "assert t.step == 1 and t.writer._tb is None\n"
+        f"from {PORT} import models as TM\n"
+        f"from {PORT}.convert import params_from_flax\n"
+        f"from {PORT}.train.checkpoint import load_checkpoint\n"
+        "nn = TM.DenseBlockCfg(8, 2, 'ReLU')\n"
+        f"m = TM.IDFlow(TM.FlowCfg({cfg_args}, couple=TM.CouplingCfg(0.75, "
+        "nn), prior_nn=nn), device='cpu')\n"
+        f"st = load_checkpoint({jpath!r}, 'cpu', params_from_flax)\n"
+        "m.load_state_dict(st['params'])\n"
+        "assert st['step'] == 5\n"
+        "print(repr(sum(float(v.double().sum()) for v in "
+        "m.state_dict().values())))\n"
         + check
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+    assert float(proc.stdout.splitlines()[-1]) == want
     with open(tmp_path / "log" / "metrics.jsonl") as f:
         tags = {json.loads(line)["tag"]: json.loads(line)["value"]
                 for line in f}

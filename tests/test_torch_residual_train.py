@@ -4,7 +4,7 @@ package.
 The reconstruction likelihoods, one VQ-VAE step (with and without
 BatchNorm), the trainer's dead-code reinit, `ResidualTrainer._prepare` and
 its loss, eval with real coding for the conditional, unconditional and
-`nouse_vqvae` configs, `cli.make_res_data`, the msgpack refusal and the
+`nouse_vqvae` configs, `cli.make_res_data`, JAX checkpoints and the
 CLI on the shipped configs.  Inputs are made from numpy seeds and handed to
 both packages; flax variables are perturbed (fresh projections are zero)
 and loaded into the port through `convert`.  Small size: 16x16x3 images;
@@ -383,13 +383,23 @@ def test_residual_guard_cadence_and_resume(vq_ckpts, tmp_path):
 
 
 def test_msgpack_checkpoint_is_refused(vq_ckpts, tmp_path):
-    """A JAX (msgpack) checkpoint raises ValueError naming ROADMAP item 7,
-    from load_params and from a ResidualTrainer pointed at it."""
-    jpath, _, _ = vq_ckpts
-    with pytest.raises(ValueError, match="item 7"):
+    """A JAX (msgpack) checkpoint is refused only without a converter:
+    load_params with none raises ValueError asking for the model's
+    converter; with vqvae_params_from_flax it returns the port
+    checkpoint's params bit for bit, and a ResidualTrainer pointed at the
+    JAX file holds the same frozen VQ-VAE as one pointed at the port's."""
+    jpath, tpath, _ = vq_ckpts
+    with pytest.raises(ValueError, match="converter"):
         tckpt.load_params(jpath, "cpu")
-    with pytest.raises(ValueError, match="item 7"):
-        ResidualTrainer(**_res_cfg(tmp_path, jpath), device="cpu")
+    got = tckpt.load_params(jpath, "cpu", convert.vqvae_params_from_flax)
+    want = tckpt.load_params(tpath, "cpu")
+    assert got.keys() == want.keys()
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    tj = ResidualTrainer(**_res_cfg(tmp_path / "j", jpath), device="cpu")
+    tt = ResidualTrainer(**_res_cfg(tmp_path / "t", tpath), device="cpu")
+    for (n, a), b in zip(tj.vqvae.state_dict().items(),
+                         tt.vqvae.state_dict().values()):
+        assert torch.equal(a, b), n
 
 
 def test_make_res_data_matches_jax(vq_ckpts, tmp_path):

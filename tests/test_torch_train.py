@@ -610,10 +610,11 @@ def test_cli_main_trains_two_steps_on_cpu(tmp_path):
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
-    """Without CUDA, a Trainer, VQVAETrainer, ResidualTrainer or
-    TwoLevelTrainer built with no device raises instead of training on the
-    CPU, and builds with device="cpu"; the fine-tuner, which the port
-    lacks, raises NotImplementedError naming its ROADMAP item."""
+    """Without CUDA, a Trainer, VQVAETrainer, ResidualTrainer,
+    TwoLevelTrainer or Finetuner built with no device raises instead of
+    training on the CPU, and builds with device="cpu"; a trainer name the
+    JAX package does not register either (`FineTuner`) is a KeyError, as
+    there."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ttrainer.Trainer(**train_cfg(tmp_path))
@@ -631,6 +632,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
             name="TwoLevelFlows", H=16, W=16, C=3, pad=[0, 0],
             rough_flows=dict(model, H=8, W=8), fine_flows=dict(model, H=8,
                                                                W=8))),
+        "Finetuner": dict(base, model=model, fine_tune=True,
+                          fine_tune_lr=1e-3),
     }
     for name, cfg in configs.items():
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -638,6 +641,5 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
         t = tcli.build_trainer({"train": dict(cfg, trainer=name)},
                                device="cpu")
         assert type(t).__name__ == name and t.device.type == "cpu"
-    for name in ("Finetuner", "FineTuner"):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            tcli.build_trainer({"train": {"trainer": name}}, device="cpu")
+    with pytest.raises(KeyError, match="FineTuner"):
+        tcli.build_trainer({"train": {"trainer": "FineTuner"}}, device="cpu")
