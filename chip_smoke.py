@@ -137,8 +137,34 @@ Phases, each printing one JSON line:
             differ from the unpadded model's (reported); its launch shapes
             then go through `paths`.  Phases 14-16 write under
             logs/chip_smoke_tools, removed at the end.
+17. scaleout  the port's scale-out (parallel/, cli/scaling.py) in
+            spawned processes, each rank's kernels counted in its own
+            process (one card: NCCL refuses two ranks on it, so the
+            two-rank parts ask for gloo, its collectives staged through
+            the host).  (a) one NCCL rank: ShardedFlowCodec on the
+            flagship at batch 16, its 3 containers byte-identical to
+            FlowCodec.compress of the batch, bit-exact, 3 launches each
+            way; one sharded train step of configs/imagenet64.yaml's
+            model equal to the plain step bit for bit.  (b) two gloo
+            ranks on the card: ShardedFlowCodec (flagship, 32 images),
+            ShardedResidualCodec (resflow-cond-imagenet64, 16 images),
+            ShardedTwoLevelCodec (config_twolevel, 4 images), each rank's
+            containers and VQIX stream byte-identical to this process's
+            single-process compress of its shard, every decode bit-exact,
+            3 / 3 / 2 launches per rank each way; the sharded Trainer
+            (cli.train.build_trainer on configs/imagenet64.yaml, use_mesh,
+            shard: true, local batch 16, 8 steps, then eval coded through
+            ShardedFlowCodec): parameters equal on both ranks, 0 coding
+            errors, step time, images/s, collective ms per step; the
+            sharded VQ search at 8192 x 512 over mesh (1, 2) equal to the
+            dense argmin on the card.  (c) cli/scaling.py at its defaults
+            (--backend gloo), overhead and weak mode at 1 and 2 ranks,
+            weak scaling on hardware stamped unmeasured.  Its launch
+            shapes then go through `paths`; files under
+            logs/chip_smoke_scaleout, removed at the end.
 
-Then the `kernels` summary line, the nvidia-smi line, and last
+Then the `kernels` summary line (`launches_scaleout`: phase 17's counts
+by part, rank and direction), the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero; with
 no CUDA device, or outside the repository, it exits non-zero and prints no
 result.  `--quick` runs phases 1-3 only.
@@ -211,13 +237,18 @@ def device_ms(fn, reps: int, names) -> float:
     `names` once: the sum over those kernels of their mean time per
     recorded launch (torch.profiler, kernels only), so that the time of a
     short kernel is not the host's time between launches, and a launch
-    the trace did not record does not lower the mean."""
+    the trace did not record does not lower the mean.
+
+    A trace that recorded no launch of a kernel is taken again: the
+    profiler can drop every record of a short kernel in a session, and
+    after the phases' own profiler sessions it has done so three times
+    running.  Then the time is CUDA events around `reps` back-to-back
+    calls (an upper bound: it holds the host's gaps between launches),
+    and a `device_ms_fallback` line says which kernels it covers."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    # a trace that recorded no launch of a kernel is taken again (the
-    # profiler can drop every record of a short kernel in a session)
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -227,13 +258,14 @@ def device_ms(fn, reps: int, names) -> float:
                      if e.device_type == torch.autograd.DeviceType.CUDA
                      and name in e.key and e.count > 0] for name in names]
         if all(per_name):
-            break
-    total = 0.0
-    for name, events in zip(names, per_name):
-        assert events, f"no device time recorded for {name}"
-        total += sum(e.self_device_time_total for e in events) / sum(
-            e.count for e in events) / 1e3
-    return total
+            return sum(sum(e.self_device_time_total for e in events)
+                       / sum(e.count for e in events) / 1e3
+                       for events in per_name)
+    ms = cuda_ms(fn, reps)
+    emit({"phase": "device_ms_fallback", "kernels": list(names),
+          "not_recorded": [n for n, ev in zip(names, per_name) if not ev],
+          "event_ms": ms})
+    return ms
 
 
 def max_err(pairs) -> int:
@@ -1862,6 +1894,427 @@ def phase_tools(wrappers, e2e):
 
 
 # ---------------------------------------------------------------------------
+# phase 17: scale-out (parallel/ and cli/scaling.py)
+# ---------------------------------------------------------------------------
+
+# the ranks' results, checkpoints, logs and the scaling artifact, removed at
+# the end
+SCALE_DIR = os.path.join(ROOT, "logs", "chip_smoke_scaleout")
+VQ_N = 2048  # VQ lookup queries: the 16 x 16 index grid of 8 images
+
+
+def scaleout_codecs():
+    """The three full-width codecs of the scale-out phase, seeded weights
+    with perturbed projections (the same in every process): the flagship
+    FlowCodec, ResidualCodec over configs/resflow-cond-imagenet64.yaml and
+    TwoLevelCodec over configs/config_twolevel.yaml."""
+    from finalproject_losslessimagecompression_tpu_torch.cli.train import (
+        load_config,
+    )
+    from finalproject_losslessimagecompression_tpu_torch.models import (
+        FlowCfg,
+        FlowCodec,
+        IDFlow,
+        ResidualCodec,
+        TwoLevelCfg,
+        TwoLevelCodec,
+        TwoLevelFlow,
+        build_vqvae_from_ref,
+    )
+
+    _, _, flagship = flagship_codec()
+    train = load_config(os.path.join(ROOT, RES_CONFIG))["train"]
+    flow = perturbed(IDFlow(FlowCfg.from_ref(train["flows"]), device="cuda",
+                            seed=0))
+    vqvae = build_vqvae_from_ref(train["vqvae"], device="cuda", seed=2).eval()
+    res = ResidualCodec(vqvae, FlowCodec(flow, num_streams=4096),
+                        tuple(train["input_size"]))
+    cfg = TwoLevelCfg.from_ref(load_config(os.path.join(ROOT, TL_CONFIG))[
+        "train"]["model"])
+    tl = TwoLevelCodec(perturbed(TwoLevelFlow(cfg, device="cuda", seed=0)),
+                       num_streams=4096)
+    return flagship, res, tl
+
+
+def scaleout_inputs():
+    """The global batches: 32 flagship images, 16 residual images, 4
+    two-level images (two ranks: 16, 8 and 2 each)."""
+    return (images(32, 1, seed=21)[0], images(16, 1, seed=23)[0],
+            twolevel_images(4, 24))
+
+
+def vq_inputs():
+    """Three sets of VQ_N queries with their 8192 x 512 codebooks:
+    `near`, each query near a codeword, as a trained encoder's outputs lie
+    (well apart from their second-nearest); `random`, N(0, 1) queries
+    whose two nearest codewords can lie within rounding of each other;
+    `tied`, queries near codewords 0..255 of a codebook whose rows
+    4096..4351 (the second tile rank's first rows) repeat them, so that
+    every query ties exactly across the two shards."""
+    g = torch.Generator(device="cpu").manual_seed(25)
+    cb = torch.randn(8192, 512, generator=g)
+    pick = torch.randint(0, 8192, (VQ_N,), generator=g)
+    near = cb[pick] + 0.1 * torch.randn(VQ_N, 512, generator=g)
+    rand = torch.randn(VQ_N, 512, generator=g)
+    tied_cb = cb.clone()
+    tied_cb[4096:4096 + 256] = cb[:256]
+    pick = torch.randint(0, 256, (VQ_N,), generator=g)
+    tied = cb[pick] + 0.1 * torch.randn(VQ_N, 512, generator=g)
+    return {"near": (near.cuda(), cb.cuda()),
+            "random": (rand.cuda(), cb.cuda()),
+            "tied": (tied.cuda(), tied_cb.cuda())}
+
+
+def vq_check(tile, x, cb):
+    """The sharded lookup of x in cb against a dense lookup on the card:
+    how many indices differ, whether the rows are the codebook's rows of
+    the returned indices, and how far the returned codewords lie beyond
+    the dense ones in float64 distance, against the float32 rounding
+    bound of the two lookups, 2 gamma_(D+2) (|x| + max |c|)^2 with
+    gamma_n = n u / (1 - n u), u = 2^-24.  The lookup is timed after a
+    warm-up."""
+    from finalproject_losslessimagecompression_tpu_torch.parallel.vq import (
+        sharded_vq_lookup,
+    )
+
+    sharded_vq_lookup(x, cb, tile)  # warm-up
+    (vq, idx), s = timed(lambda: sharded_vq_lookup(x, cb, tile))
+    dense = ((x * x).sum(1, keepdim=True) + (cb * cb).sum(1)
+             - 2.0 * (x @ cb.T)).argmin(1)
+
+    def dist64(i):
+        return ((x.double() - cb[i].double()) ** 2).sum(1)
+
+    n, u = x.shape[1] + 2, 2.0 ** -24
+    gamma = n * u / (1 - n * u)
+    bound = 2 * gamma * (x.double().norm(dim=1)
+                         + cb.double().norm(dim=1).max()) ** 2
+    excess = dist64(idx) - dist64(dense)
+    return {"queries": int(x.shape[0]), "codewords": int(cb.shape[0]),
+            "dim": int(x.shape[1]),
+            "indices_differ_dense": int((idx != dense).sum()),
+            "indices_equal_dense": bool(torch.equal(idx, dense)),
+            "rows_equal": bool(torch.equal(vq, cb[idx])),
+            "max_excess_dist": float(excess.max()),
+            "within_rounding": bool((excess <= bound).all()),
+            "rounding_bound_min": float(bound.min()),
+            "all_in_first_shard": bool((idx < cb.shape[0] // 2).all()),
+            "lookup_s": s}
+
+
+def coded(wrappers, run):
+    """(run(), launches, seconds): counts zeroed just before, read just
+    after, the run fenced with synchronize."""
+    torch.cuda.synchronize()
+    reset_launches(wrappers)
+    t0 = time.time()
+    out = run()
+    torch.cuda.synchronize()
+    return out, launch_counts(wrappers), time.time() - t0
+
+
+def sharded_round_trip(wrappers, sharded, x):
+    """One warm-up pass, then a compress and a decompress of the global
+    batch x, each with its launch counts; the decode must return x on
+    this rank exactly."""
+    sharded.decompress(*sharded.compress(x), fetch=True)  # cuDNN, allocator
+    out, enc_launches, enc_s = coded(wrappers, lambda: sharded.compress(x))
+    rec, dec_launches, dec_s = coded(
+        wrappers, lambda: sharded.decompress(*out, fetch=True))
+    assert np.array_equal(rec, x), "sharded round trip is not bit-exact"
+    return out, {"compress": enc_launches, "decompress": dec_launches,
+                 "compress_s": enc_s, "decompress_s": dec_s}
+
+
+def scaleout_nccl_rank(path):
+    """(a) One NCCL rank on cuda:0: ShardedFlowCodec on the flagship at
+    batch 16 against FlowCodec.compress of the batch, and one sharded train
+    step of configs/imagenet64.yaml's model against the plain step."""
+    import torch.distributed as dist
+
+    from finalproject_losslessimagecompression_tpu_torch.cli.train import (
+        load_config,
+    )
+    from finalproject_losslessimagecompression_tpu_torch.models import (
+        FlowCfg,
+        IDFlow,
+        log_likelihood,
+    )
+    from finalproject_losslessimagecompression_tpu_torch.parallel.flow_codec import (  # noqa: E501
+        ShardedFlowCodec,
+    )
+    from finalproject_losslessimagecompression_tpu_torch.parallel.mesh import (  # noqa: E501
+        init_distributed,
+        make_mesh,
+    )
+    from finalproject_losslessimagecompression_tpu_torch.parallel.sharding import (  # noqa: E501
+        make_sharded_train_step,
+    )
+    from finalproject_losslessimagecompression_tpu_torch.train.optim import (
+        build_optimizer,
+    )
+
+    device = init_distributed("nccl", timeout_s=600.0)
+    mesh = make_mesh()
+    wrappers = kernel_wrappers()
+    _, _, codec = flagship_codec()
+    x = images(16, 1, seed=21)[0]
+    sharded = ShardedFlowCodec(codec, mesh)
+    (blobs, info), launches = sharded_round_trip(wrappers, sharded, x)
+    solo, _ = codec.compress(torch.from_numpy(x).cuda())
+    assert blobs == solo, "one-rank NCCL containers differ from FlowCodec's"
+
+    train = load_config(os.path.join(ROOT, TRAIN_CONFIG))["train"]
+    cfg = FlowCfg.from_ref(train["model"])
+    batch = torch.from_numpy(images(16, 1, seed=26)[0]).cuda()
+    models = [perturbed(IDFlow(cfg, device=device, seed=0))
+              for _ in range(2)]
+    opts = [build_optimizer(m.parameters(), train["optimizer"],
+                            train["scheduler"], train["step_per_epoch"])
+            for m in models]
+    _, sharded_s = timed(
+        lambda: make_sharded_train_step(models[0], opts[0], mesh)(batch))
+    lat, m, ls = models[1](batch)
+    (-log_likelihood(cfg, lat, m, ls)[0].mean()).backward()
+    opts[1].step()
+    equal = all(torch.equal(a, b) for a, b in zip(
+        models[0].state_dict().values(), models[1].state_dict().values()))
+    assert equal, "the one-rank sharded step differs from the plain step"
+    with open(path, "w") as f:
+        json.dump({"backend": dist.get_backend(), "world": mesh.size,
+                   "device": str(device), "containers": len(blobs),
+                   "byte_identical": True, "bit_exact": True,
+                   "launches": launches, "train_step_equal": equal,
+                   "first_sharded_step_s": sharded_s,
+                   "collective_calls": mesh.comm_calls,
+                   "collective_s": mesh.comm_s}, f)
+    dist.destroy_process_group()
+
+
+def scaleout_gloo_rank(out_dir):
+    """(b) One of two gloo ranks sharing cuda:0: the three sharded codecs
+    at full width, the sharded Trainer, the sharded VQ lookup."""
+    import torch.distributed as dist
+
+    from finalproject_losslessimagecompression_tpu_torch.cli.train import (
+        apply_overrides,
+        build_trainer,
+    )
+    from finalproject_losslessimagecompression_tpu_torch.models.exact import (
+        set_deterministic_cuda,
+    )
+    from finalproject_losslessimagecompression_tpu_torch.parallel.flow_codec import (  # noqa: E501
+        ShardedFlowCodec,
+    )
+    from finalproject_losslessimagecompression_tpu_torch.parallel.full_codecs import (  # noqa: E501
+        ShardedResidualCodec,
+        ShardedTwoLevelCodec,
+    )
+    from finalproject_losslessimagecompression_tpu_torch.parallel.mesh import (  # noqa: E501
+        init_distributed,
+        make_mesh,
+    )
+    from finalproject_losslessimagecompression_tpu_torch.parallel.multiproc import (  # noqa: E501
+        params_sha256,
+    )
+    init_distributed("gloo", "cuda:0", timeout_s=600.0)
+    set_deterministic_cuda()
+    mesh = make_mesh()
+    r = mesh.rank
+    wrappers = kernel_wrappers()
+    out = {"rank": r, "mesh": dict(mesh.shape)}
+    flagship, res, tl = scaleout_codecs()
+    x_flow, x_res, x_tl = scaleout_inputs()
+    (out["flow_blobs"], _), out["flow"] = sharded_round_trip(
+        wrappers, ShardedFlowCodec(flagship, mesh), x_flow)
+    (out["res_idx"], out["res_blobs"], _), out["residual"] = \
+        sharded_round_trip(wrappers, ShardedResidualCodec(res, mesh), x_res)
+    (out["tl_blobs"], _), out["twolevel"] = sharded_round_trip(
+        wrappers, ShardedTwoLevelCodec(tl, mesh), x_tl)
+    del flagship, res, tl
+    torch.cuda.empty_cache()
+
+    # the sharded Trainer: configs/imagenet64.yaml, local batch 16
+    d = os.path.join(SCALE_DIR, "train")
+    config = train_config()
+    config["train"]["train_dataloader"]["shard"] = True
+    config["train"]["test_dataloader"]["shard"] = True
+    apply_overrides(config, [
+        "train.use_mesh=true", "train.evaluate_interval=1000",
+        f"train.save_path={d}/imagenet64.ckpt", f"train.writer_path={d}/log"])
+    t = build_trainer(config)
+    fill_caches(t)
+    comm0 = t.mesh.comm_s
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, train_launches, wall = coded(wrappers, t.train)
+    comm_s = t.mesh.comm_s - comm0
+    ev, eval_launches, eval_s = coded(wrappers, t.evaluate)
+    out["trainer"] = {
+        "steps": t.step, "local_batch": t.trainloader.batch_size,
+        "wall_s": wall, "collective_ms_per_step": comm_s / t.step * 1e3,
+        "launches_train": train_launches, "launches_eval": eval_launches,
+        "eval_s": eval_s, "coding_errors": ev["coding_errors"],
+        "real_bpd": ev["real_bpd"], "test_bpd": ev["test_bpd"],
+        "params_sha256": params_sha256(t.model),
+        "shard": [t.trainloader.shard_index, t.trainloader.shard_count]}
+    del t
+    torch.cuda.empty_cache()
+
+    # the sharded VQ codebook search over the `tile` ranks of mesh (1, 2)
+    tile = make_mesh((1, 2))
+    out["vq"] = {name: vq_check(tile, x, cb)
+                 for name, (x, cb) in vq_inputs().items()}
+    out["collective_calls"], out["collective_s"] = mesh.comm_calls, \
+        mesh.comm_s
+    torch.save(out, os.path.join(out_dir, f"rank{r}.pt"))
+    dist.destroy_process_group()
+
+
+def reference_encodes():
+    """This process's single-process compress of each of two ranks' shards
+    with each scale-out codec: {part: [rank 0's, rank 1's]}, plus the
+    launch shapes they code with."""
+    flagship, res, tl = scaleout_codecs()
+    x_flow, x_res, x_tl = scaleout_inputs()
+    refs = {"flow": [], "residual": [], "twolevel": []}
+    for r in range(2):
+        refs["flow"].append(flagship.compress(torch.from_numpy(
+            x_flow[16 * r:16 * r + 16]).cuda())[0])
+        refs["residual"].append(res.compress(torch.from_numpy(
+            x_res[8 * r:8 * r + 8]).cuda())[:2])
+        refs["twolevel"].append(tl.compress(torch.from_numpy(
+            x_tl[2 * r:2 * r + 2]).cuda())[0])
+    # the trainer's eval codes 8 images per rank
+    shapes = (coded_shapes(flagship, [16, 8]) + coded_shapes(res.codec, [8])
+              + twolevel_shapes(tl, [2]))
+    return refs, shapes
+
+
+def phase_scaleout(wrappers, train):
+    """Phase 17: (a) one NCCL rank, (b) two gloo ranks sharing the card,
+    each rank's containers held against a single-process encode of its
+    shard in this process (made while (a) runs), (c) cli/scaling.py in
+    overhead and weak mode at 1 and 2 ranks on the shared card, (d)
+    parallel/multiproc.py's launcher with one NCCL rank and with two gloo
+    ranks on the card."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from finalproject_losslessimagecompression_tpu_torch.parallel.multiproc import (  # noqa: E501
+        launch,
+        spawn_ranks,
+    )
+
+    shutil.rmtree(SCALE_DIR, ignore_errors=True)
+    os.makedirs(SCALE_DIR)
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    path = os.path.join(SCALE_DIR, "nccl.json")
+    with ThreadPoolExecutor(1) as pool:
+        nccl_run = pool.submit(spawn_ranks, scaleout_nccl_rank, 1, (path,),
+                               600.0)
+        refs, shapes = reference_encodes()
+        nccl_run.result()
+    torch.cuda.empty_cache()
+    with open(path) as f:
+        nccl = json.load(f)
+    for direction, names in (("compress", ENC), ("decompress", DEC)):
+        assert all(nccl["launches"][direction][n] == 3 for n in names), nccl
+    emit({"phase": "scaleout_nccl", **nccl, "phase_s": time.time() - t0})
+
+    t0 = time.time()
+    spawn_ranks(scaleout_gloo_rank, 2, (SCALE_DIR,), timeout_s=900.0)
+    ranks = [torch.load(os.path.join(SCALE_DIR, f"rank{r}.pt"),
+                        weights_only=False) for r in range(2)]
+    ranks_s = time.time() - t0
+    expect = {"flow": 3, "residual": 3, "twolevel": 2}
+    for r, rank in enumerate(ranks):
+        assert rank["flow_blobs"][3 * r:3 * r + 3] == refs["flow"][r], r
+        idx_blob, blobs = refs["residual"][r]
+        assert rank["res_idx"][r] == idx_blob, r
+        assert rank["res_blobs"][3 * r:3 * r + 3] == blobs, r
+        assert [rank["tl_blobs"][r], rank["tl_blobs"][2 + r]] == \
+            refs["twolevel"][r], r
+        for part, n in expect.items():
+            for direction, names in (("compress", ENC),
+                                     ("decompress", DEC)):
+                assert all(rank[part][direction][k] == n for k in names), \
+                    (r, part, rank[part])
+        tr = rank["trainer"]
+        assert tr["coding_errors"] == 0 and tr["steps"] == 8, tr
+        assert all(tr["launches_eval"][k] == 3 for k in ENC + DEC), tr
+        assert all(v == 0 for v in tr["launches_train"].values()), tr
+        vq = rank["vq"]
+        assert all(v["rows_equal"] and v["within_rounding"]
+                   for v in vq.values()), vq
+        assert vq["near"]["indices_equal_dense"], vq
+        assert vq["tied"]["all_in_first_shard"], vq  # ties: lowest index
+    assert ranks[0]["trainer"]["params_sha256"] == \
+        ranks[1]["trainer"]["params_sha256"], "ranks' params differ"
+    step_s = statistics.median(
+        v for _, v in logged("step time s",
+                             os.path.join(SCALE_DIR, "train", "log")))
+    batch = 2 * ranks[0]["trainer"]["local_batch"]
+    gloo = {
+        "phase": "scaleout_gloo", "ranks": 2, "device": "cuda:0 (shared)",
+        "byte_identical": True, "bit_exact": True,
+        "launches": {f"{part}_rank{r}": {d: rank[part][d] for d in
+                                        ("compress", "decompress")}
+                     for r, rank in enumerate(ranks) for part in expect},
+        "codec_s": {f"{part}_rank{r}": {d: rank[part][d + "_s"] for d in
+                                       ("compress", "decompress")}
+                    for r, rank in enumerate(ranks) for part in expect},
+        "trainer": {**{k: v for k, v in ranks[0]["trainer"].items()
+                       if k != "launches_train"},
+                    "params_equal_on_ranks": True, "step_s": step_s,
+                    "global_batch": batch,
+                    "train_images_per_s": batch / step_s,
+                    "phase_train_step_s": train["step_s"] if train else None},
+        "vq": ranks[0]["vq"],
+        "collective_s": [rank["collective_s"] for rank in ranks],
+        "ranks_s": ranks_s,
+        "kernel_shapes": shapes,
+    }
+    emit(gloo)
+
+    t0 = time.time()
+    path = os.path.join(SCALE_DIR, "scaling.json")
+    proc = subprocess.run(
+        [sys.executable, "-m",
+         "finalproject_losslessimagecompression_tpu_torch.cli.scaling",
+         "--backend", "gloo", "--timeout", "300", "--out", path], cwd=ROOT,
+        capture_output=True, text=True, timeout=360)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    with open(path) as f:
+        scaling = json.load(f)
+    assert scaling["weak_scaling_on_hardware"].startswith("unmeasured")
+    emit({"phase": "scaleout_scaling", **{k: scaling[k] for k in (
+        "device_name", "backend", "n_devices", "distinct_cards", "model",
+        "per_device_batch", "overhead", "weak",
+        "weak_scaling_on_hardware")}, "phase_s": time.time() - t0})
+
+    # parallel/multiproc.py's launcher on the card: one rank at its
+    # defaults (NCCL, one card per rank), then two gloo ranks sharing it;
+    # each run's reference coder reproduces every rank's containers
+    for name, kw in (("nccl", {}),
+                     ("gloo", {"device": "cuda:0", "backend": "gloo"})):
+        t0 = time.time()
+        n = 1 if name == "nccl" else 2
+        mp = launch(n, steps=4, local_batch=4, timeout_s=300.0, **kw)
+        assert mp["ok"] and mp["coding"]["byte_identical"] and \
+            mp["coding"]["bit_exact"], mp
+        assert mp["epoch_coverage"]["disjoint"], mp
+        emit({"phase": f"scaleout_multiproc_{name}", "ranks": n,
+              **{k: mp[k] for k in ("collectives", "mesh_shape",
+                                    "identical_loss_series", "wall_s")},
+              "per_rank_container_sha256":
+                  mp["coding"]["per_rank_container_sha256"],
+              "phase_s": time.time() - t0})
+    shutil.rmtree(SCALE_DIR, ignore_errors=True)
+    return {"nccl": nccl, "gloo": gloo, "ranks": ranks,
+            "kernel_shapes": gloo["kernel_shapes"]}
+
+
+# ---------------------------------------------------------------------------
 # phase 13: an 8M-symbol message
 # ---------------------------------------------------------------------------
 
@@ -1904,7 +2357,20 @@ def phase_large(depth_ns, n: int = 8 * 2**20):
 # ---------------------------------------------------------------------------
 
 
-def kernels_line(rows, e2e, train, cli, residual, pipes, tools):
+def launches_scaleout(scaleout, name):
+    """A kernel's launch counts in phase 17, by part, rank and direction."""
+    out = {f"flow_nccl_{d}": scaleout["nccl"]["launches"][d][name]
+           for d in ("compress", "decompress")}
+    for r, rank in enumerate(scaleout["ranks"]):
+        for part in ("flow", "residual", "twolevel"):
+            for d in ("compress", "decompress"):
+                out[f"{part}_gloo_rank{r}_{d}"] = rank[part][d][name]
+        out[f"trainer_eval_gloo_rank{r}"] = \
+            rank["trainer"]["launches_eval"][name]
+    return out
+
+
+def kernels_line(rows, e2e, train, cli, residual, pipes, tools, scaleout):
     head = [r for r in rows if r["S"] == 384 and not r["seeded"]][0]
     out = []
     for key, name, replaces, extra in (
@@ -1941,6 +2407,8 @@ def kernels_line(rows, e2e, train, cli, residual, pipes, tools):
             "launches_padded": (
                 {m: v[name] for m, v in tools["padded"]["launches"].items()}
                 if tools else None),
+            "launches_scaleout": (launches_scaleout(scaleout, name)
+                                  if scaleout else None),
             "max_abs_err": max(r[key]["max_abs_err"] for r in rows),
             "matches_plain": all(r[key]["max_abs_err"] == 0 for r in rows),
             "ms": h["ms"], "plain_ms": h["plain_ms"],
@@ -1964,7 +2432,7 @@ def main(argv) -> int:
     smi = phase_device()
     depth_ns = phase_depth()
     rows, _, _ = phase_kernels(depth_ns)
-    e2e = train = cli = residual = pipes = tools = None
+    e2e = train = cli = residual = pipes = tools = scaleout = None
     if "--quick" not in argv:
         e2e = phase_e2e()
         train = phase_train(kernel_wrappers())
@@ -1976,8 +2444,10 @@ def main(argv) -> int:
                      depth_ns)
         rows.append(phase_large(depth_ns))
         tools = phase_tools(kernel_wrappers(), e2e)
-        path_kernels(rows, (tools["padded"],), depth_ns)
-    emit(kernels_line(rows, e2e, train, cli, residual, pipes, tools))
+        scaleout = phase_scaleout(kernel_wrappers(), train)
+        path_kernels(rows, (tools["padded"], scaleout), depth_ns)
+    emit(kernels_line(rows, e2e, train, cli, residual, pipes, tools,
+                      scaleout))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -2,10 +2,11 @@
 NVIDIA Hopper (H100).
 
 The JAX package `finalproject_losslessimagecompression_tpu` beside it is the
-reference; this package imports neither it nor JAX.  Ported so far: the
-plain flow codec's serving path, `FlowCodec` over an unconditional `IDFlow`,
-with its interleaved-rANS entropy coder as hand-written CUDA kernels, and
-the flow trainer (`cli/train.py` -> `train.Trainer`).
+reference; this package imports neither it nor JAX.  It does what the JAX
+package does (its bench aside): the codecs (`FlowCodec` over `IDFlow`, the
+residual and two-level pipelines) with the interleaved-rANS entropy coder
+as hand-written CUDA kernels, the trainers, the file codec CLI, the tools,
+and scale-out over ranks of `torch.distributed`.
 
 Package layout (module names mirror the JAX package):
     ops/        grid rounding, space-to-depth, discretized logistic
@@ -15,9 +16,12 @@ Package layout (module names mirror the JAX package):
     csrc/       CUDA (rANS kernels) and C++ (container state chain) sources,
                 compiled at first use into build/
     data/       datasets and the batching loader (numpy)
-    train/      optimizers and schedules, metrics, checkpoints, Trainer
+    train/      optimizers and schedules, metrics, checkpoints, the trainers
+    parallel/   process-group meshes, sharded steps, sharded codecs and VQ
+                search, the multi-process runtime, the scaling harness
     utils/      timing and FLOP accounting
-    cli/        the training entry point and its YAML-subset reader
+    cli/        training, file codec, scaling and tool entry points, the
+                YAML-subset reader
     registry.py name -> constructor registries for the configs
     convert.py  flax parameter trees and optax states -> this package's
                 state_dicts

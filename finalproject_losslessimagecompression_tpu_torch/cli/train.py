@@ -9,12 +9,24 @@ TwoLevelTrainer or Finetuner) and passes the rest as constructor kwargs;
 the same files drive the JAX package's trainers.  The YAML is read by the
 port's own subset reader (`cli/yamlite.py`), so training needs no
 PyYAML.  The trainer runs on the card unless `--device cpu` is given.
+
+Several ranks (`use_mesh: true` in the config, `shard: true` on its
+loaders):
+
+    torchrun --nproc_per_node N -m \
+        finalproject_losslessimagecompression_tpu_torch.cli.train \
+        --config configs/<name>.yaml --distributed
+
+`--distributed` (or LIC_DISTRIBUTED=1) joins the process group from the
+torchrun variables (`parallel.mesh.init_distributed`: NCCL, one card per
+rank; gloo with `--device cpu`) and raises without them.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 
 from ..registry import TRAINERS
 from ..train import finetuner as _finetuner  # noqa: F401 (registers)
@@ -77,7 +89,10 @@ def main(argv=None):
     )
     ap.add_argument(
         "--distributed", action="store_true",
-        help="multi-process training (not ported yet)",
+        help="multi-process training: join the process group from the "
+        "torchrun variables (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, "
+        "MASTER_PORT; or LIC_DISTRIBUTED=1). Pair with `shard: true` on the "
+        "dataloaders so each rank draws a disjoint slice of every epoch.",
     )
     ap.add_argument(
         "--set", action="append", default=[], metavar="KEY=VALUE",
@@ -86,10 +101,16 @@ def main(argv=None):
         "values parse as YAML scalars. Repeatable.",
     )
     args = ap.parse_args(argv)
-    if args.distributed:
-        raise NotImplementedError(
-            "--distributed is not ported yet: ROADMAP queue 1, item 15 "
-            "(scale-out)")
+    if args.distributed or os.environ.get("LIC_DISTRIBUTED", "") == "1":
+        import torch.distributed as dist
+
+        from ..parallel.mesh import init_distributed
+
+        device = init_distributed(
+            "gloo" if args.device == "cpu" else None, args.device)
+        print(f"torch.distributed: rank {dist.get_rank()} of "
+              f"{dist.get_world_size()} ({dist.get_backend()}), device "
+              f"{device}")
     config = apply_overrides(load_config(args.config), args.set)
     print(json.dumps(config, indent=2))
     t = build_trainer(config, device=args.device)

@@ -216,7 +216,12 @@ class BatchNorm(nn.Module):
     """flax's BatchNorm over the channels of an NCHW tensor: epsilon 1e-5,
     running averages updated as ra = 0.99 ra + 0.01 batch with the biased
     batch variance (torch's BatchNorm2d would store the unbiased one).
-    `train=False` normalises with the running averages."""
+    `train=False` normalises with the running averages.
+
+    `sum_over_ranks`, where a data-parallel trainer sets it (a
+    differentiable sum over the ranks), makes the train-mode moments those
+    of the global batch: the per-rank sums of x and x * x and the element
+    counts are summed over the ranks before the division."""
 
     def __init__(self, ch: int, momentum: float = 0.99, eps: float = 1e-5):
         super().__init__()
@@ -225,12 +230,19 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(ch))
         self.register_buffer("running_mean", torch.zeros(ch))
         self.register_buffer("running_var", torch.ones(ch))
+        self.sum_over_ranks = None
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if train:
-            mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean,
-                              min=0.0)
+            dims = (0, 2, 3)
+            if self.sum_over_ranks is None:
+                mean, mean_sq = x.mean(dim=dims), (x * x).mean(dim=dims)
+            else:
+                n = torch.full_like(x[0, :, 0, 0], x.numel() // x.shape[1])
+                sums = self.sum_over_ranks(torch.stack(
+                    [x.sum(dim=dims), (x * x).sum(dim=dims), n]))
+                mean, mean_sq = sums[0] / sums[2], sums[1] / sums[2]
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_((1 - m) * mean)

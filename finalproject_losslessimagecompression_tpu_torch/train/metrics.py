@@ -68,3 +68,18 @@ class MetricsWriter:
         self._f.close()
         if self._tb is not None:
             self._tb.close()
+
+
+class NullWriter:
+    """A MetricsWriter that writes nothing: a sharded run's ranks other
+    than 0, whose metrics equal rank 0's."""
+
+    def add_scalar(self, tag: str, value: float, step: int) -> None:
+        pass
+
+    def add_image_grid(self, tag: str, images, step: int,
+                       nrow: int = 4) -> None:
+        pass
+
+    def close(self) -> None:
+        pass

@@ -20,6 +20,17 @@ container that does not decode (`ValueError`) counts the whole batch as
 errors.  Building the codec pins the process to deterministic float32
 cuDNN with TF32 off (`models/exact.py`).
 
+With `use_mesh: true` over several ranks (see train/trainer.py for the
+batch and checkpoint conventions) each rank prepares and trains on its
+own images; `patch_batch_size` then draws the subset from the global
+batch's patches, the same draw on every rank (each rank's patches being
+a contiguous run of the image-major global order), and each rank weighs
+its selected patches so that the averaged gradient is that of the
+subset's mean.  Eval coding of the conditional pipeline goes through
+`ShardedResidualCodec` when the eval batch divides over the ranks; the
+patch codec's eval runs the global batch on every rank and codes it with
+the plain codec, as the JAX trainer does.
+
 Losses come back to the host only at the `log_every` cadence.  The trainer
 runs on the card unless the caller passes device="cpu".
 """
@@ -41,12 +52,21 @@ from ..models.residual_codec import ResidualCodec
 from ..models.vqvae import build_vqvae_from_ref
 from ..ops.reshape import patch_merge, patch_split
 from ..ops.rounding import round_to_grid
+from ..parallel.full_codecs import ShardedResidualCodec
+from ..parallel.sharding import (
+    eval_batch,
+    global_mean,
+    is_lead,
+    local_batch,
+    replicate,
+    sharded_update,
+    trainer_mesh,
+)
 from ..registry import DATALOADERS, TRAINERS, build
 from ..utils.profiling import StepClock
 from .checkpoint import load_params, restore_train_state, save_checkpoint
-from .metrics import MetricsWriter
 from .optim import build_optimizer
-from .trainer import at_interval, refuse_mesh
+from .trainer import at_interval, rank0_writer
 
 LN2 = math.log(2.0)
 
@@ -81,7 +101,7 @@ class ResidualTrainer:
         device=None,
     ):
         self.device = resolve_device(device)
-        refuse_mesh(use_mesh, self.device)
+        self.mesh = trainer_mesh(use_mesh, self.device)
         flows = dict(flows)
         self.load_path = flows.pop("load_path", None)
         self.cfg = FlowCfg.from_ref(flows)
@@ -109,7 +129,7 @@ class ResidualTrainer:
         self.evaluate_interval = evaluate_interval
         self.save_interval = save_interval
         self.save_path = save_path
-        self.writer = MetricsWriter(writer_path)
+        self.writer = rank0_writer(writer_path, self.mesh)
         self.patch_batch_size = patch_batch_size
         self.max_eval_batches = max_eval_batches
         self.test_coding = test_coding
@@ -117,6 +137,8 @@ class ResidualTrainer:
         self.step = 0
         if self.load_path:
             self.restore(self.load_path)
+        if self.mesh is not None:
+            replicate(self.model, self.mesh)
         self.codec = FlowCodec(self.model, num_streams=num_streams)
         # the conditional flow with the VQ-VAE codes the whole pipeline:
         # the index stream too, decoded with no side information
@@ -124,6 +146,9 @@ class ResidualTrainer:
         if self.cfg.conditional and not nouse_vqvae:
             self.res_codec = ResidualCodec(self.vqvae, self.codec,
                                            self.input_size)
+        self.sharded_res_codec = (
+            None if self.res_codec is None or self.mesh is None
+            else ShardedResidualCodec(self.res_codec, self.mesh))
         self.gen = torch.Generator(device=self.device).manual_seed(seed + 2)
 
     # -- checkpointing ----------------------------------------------------
@@ -133,7 +158,8 @@ class ResidualTrainer:
                 "opt_state": self.optimizer.state_dict(), "step": self.step}
 
     def save(self, path: Optional[str] = None):
-        save_checkpoint(path or self.save_path, self._state())
+        if is_lead(self.mesh):
+            save_checkpoint(path or self.save_path, self._state())
 
     def restore(self, path: str):
         st = restore_train_state(path, self.model, self.optimizer,
@@ -172,23 +198,40 @@ class ResidualTrainer:
         }
         return -lp.mean(), aux
 
+    def _select(self, n: int):
+        """(this rank's patch indices, the weight of its mean loss) of a
+        `patch_batch_size` draw from the n patches of this rank's images.
+        Over a mesh the draw is over the global batch's n * D patches, the
+        same on every rank, and the weight makes the ranks' averaged
+        losses the subset's mean."""
+        D = 1 if self.mesh is None else self.mesh.size
+        k = min(self.patch_batch_size, n * D)
+        sel = torch.randperm(n * D, generator=self.gen,
+                             device=self.device)[:k]
+        if self.mesh is None:
+            return sel, 1.0
+        lo = self.mesh.rank * n
+        mine = sel[(sel >= lo) & (sel < lo + n)] - lo
+        return mine, mine.numel() * D / k
+
     def train_step(self, data: torch.Tensor):
-        """One update on an image batch; returns (loss, aux) on the device,
-        no host sync."""
+        """One update on an image batch (over a mesh, this rank's images);
+        returns (loss, aux) on the device, no host sync (over a mesh: the
+        global loss, this rank's aux)."""
         patches, rec_patches, _ = self._prepare(data)
+        weight = 1.0
         if self.patch_batch_size:
-            n = patches.shape[0]
-            sel = torch.randperm(n, generator=self.gen, device=self.device)[
-                :min(self.patch_batch_size, n)]
+            sel, weight = self._select(patches.shape[0])
             patches = patches[sel]
             if rec_patches is not None:
                 rec_patches = rec_patches[sel]
-        loss, aux = self.loss_fn(patches, rec_patches)
-        aux.pop("latents")
-        self.optimizer.zero_grad()
-        loss.backward()
-        self.optimizer.step()
-        return loss.detach(), {k: v.detach() for k, v in aux.items()}
+        if patches.shape[0]:
+            loss, aux = self.loss_fn(patches, rec_patches)
+            aux.pop("latents")
+            aux = {k: v.detach() for k, v in aux.items()}
+        else:  # no patch of the draw is this rank's
+            loss, aux = torch.zeros((), device=self.device), {}
+        return sharded_update(loss * weight, self.optimizer, self.mesh), aux
 
     @torch.no_grad()
     def eval_step(self, data: torch.Tensor):
@@ -199,8 +242,17 @@ class ResidualTrainer:
 
     # -- eval -------------------------------------------------------------
 
-    def _code(self, data, host, patches, rec_patches):
-        """(coding errors, real bpd) of one batch coded for real."""
+    def _code(self, data, host, patches, rec_patches, sharded=False):
+        """(coding errors, real bpd) of one batch coded for real.  With
+        `sharded` (over a mesh, the batch divided over the ranks) the
+        global batch `data` codes through ShardedResidualCodec, and a
+        container that does not decode raises ValueError on every rank."""
+        if sharded:
+            codec = self.sharded_res_codec
+            idx_blobs, blobs, info = codec.compress(data)
+            dec = codec.decompress(idx_blobs, blobs, info, fetch=True)
+            return (int(np.sum(dec != host)),
+                    codec.real_bpd(idx_blobs, blobs, info))
         if self.res_codec is not None:
             idx_blob, blobs, info = self.res_codec.compress(data)
             dec = self.res_codec.decompress(idx_blob, blobs, info,
@@ -217,26 +269,41 @@ class ResidualTrainer:
         bpds, real_bpds, errors = [], [], 0
         last, rec_err = {}, float("nan")
         for n, host in enumerate(iter(self.testloader), 1):
+            # over a mesh every rank holds the global batch and evaluates
+            # its rows
+            host, part = eval_batch(host, self.testloader, self.mesh)
+            if self.sharded_res_codec is None:
+                # the patch codec codes the global batch on every rank, as
+                # the JAX trainer does
+                part = None
             host = np.ascontiguousarray(host)
             data = torch.from_numpy(host).to(self.device)
-            loss, aux, patches, rec_patches, rec = self.eval_step(data)
-            bpds.append(float(loss) / LN2)
+            mine = data if part is None else torch.from_numpy(
+                np.ascontiguousarray(part)).to(self.device)
+            loss, aux, patches, rec_patches, rec = self.eval_step(mine)
+            bpds.append(float(global_mean(loss, self.mesh)) / LN2)
             with torch.no_grad():
                 gen = patch_merge(
                     self.model.inverse_from_latents(aux["latents"]), H, W)
             rec_img = gen if rec is None else rec + gen
-            rec_err = float(torch.linalg.norm(data - rec_img))
-            last = {"data": data, "rec_img": rec_img}
+            if part is None:
+                rec_err = float(torch.linalg.norm(mine - rec_img))
+            else:
+                rec_err = float(torch.sqrt(self.mesh.all_reduce(
+                    torch.sum((mine - rec_img) ** 2))))
+            last = {"data": mine, "rec_img": rec_img}
             if rec is not None:
                 last.update(rec=rec, res_dec=gen)
             if self.test_coding:
                 try:
-                    err, rbpd = self._code(data, host, patches, rec_patches)
+                    err, rbpd = self._code(data, host, patches, rec_patches,
+                                           part is not None)
                     errors += err
                     real_bpds.append(rbpd)
                 except ValueError:
                     # an undecodable container: the whole batch failed
-                    errors += int(patches.numel())
+                    # (over a mesh, on every rank)
+                    errors += int(host.size)
             if self.max_eval_batches and n >= self.max_eval_batches:
                 break
         out = {
@@ -256,7 +323,10 @@ class ResidualTrainer:
         clock = StepClock()
         while self.step < self.max_step:
             self.step += 1
-            data = torch.from_numpy(np.asarray(next(self.trainloader))).to(
+            host = np.asarray(next(self.trainloader))
+            if self.mesh is not None:
+                host = local_batch(host, self.trainloader, self.mesh)
+            data = torch.from_numpy(np.ascontiguousarray(host)).to(
                 self.device)
             loss, _ = self.train_step(data)
             if self.step % self.log_every == 0:

@@ -15,6 +15,18 @@ errors; any other failure raises.  Building the codec pins the process to
 deterministic float32 cuDNN with TF32 off (`models/exact.py`), so training
 runs under the same arithmetic contract as the codec.
 
+With `use_mesh: true` in an initialised process group of more than one
+rank (parallel/mesh.py: init_distributed), every step is data-parallel
+(parallel/sharding.py: the gradients and the loss all_reduced over the
+ranks) and eval coding goes through `ShardedFlowCodec`, each rank coding
+its shard, when the eval batch divides over the ranks.  A loader with
+`shard: true` yields the rank's local batch and the global batch is the
+ranks' local batches in rank order (JAX's multi-process meaning); an
+unsharded loader yields the global batch on every rank, which takes its
+rows (JAX's single-controller meaning).  Rank 0 alone writes checkpoints
+and metrics (the parameters are equal on every rank).  With one rank,
+`use_mesh` runs the plain step, as in the JAX package.
+
 The trainer runs on the card unless the caller passes device="cpu".
 Checkpoints hold {params, opt_state, step}; a resume whose step is not a
 multiple of K realigns the step down (the optimizer's own update count,
@@ -36,22 +48,31 @@ from ..models.config import FlowCfg, latent_shapes
 from ..models.exact import FlowCodec
 from ..models.idflow import IDFlow, log_likelihood, resolve_device
 from ..ops.dlogistic import dlogistic_sample
+from ..parallel.flow_codec import ShardedFlowCodec
+from ..parallel.sharding import (
+    eval_batch,
+    global_mean,
+    is_lead,
+    local_batch,
+    replicate,
+    sharded_update,
+    trainer_mesh,
+)
 from ..registry import DATALOADERS, TRAINERS, build
 from ..utils.profiling import PhaseTimer, device_peak_tflops, fence, step_flops
 from .checkpoint import restore_train_state, save_checkpoint
-from .metrics import MetricsWriter
+from .metrics import MetricsWriter, NullWriter
 from .optim import build_optimizer
 
 LN2 = math.log(2.0)
 
 
-def refuse_mesh(use_mesh: bool, device: torch.device) -> None:
-    """The trainers' `use_mesh` over several GPUs is not ported."""
-    if use_mesh and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            "use_mesh over several GPUs is not ported yet (ROADMAP queue 1, "
-            "item 15: scale-out); set use_mesh: false or make one GPU "
-            "visible")
+def rank0_writer(writer_path: str, mesh):
+    """The metrics writer of a trainer: rank 0's writes, the others'
+    discard."""
+    if is_lead(mesh):
+        return MetricsWriter(writer_path)
+    return NullWriter()
 
 
 def at_interval(step: int, step_per_epoch: int, interval: int) -> bool:
@@ -87,7 +108,7 @@ class Trainer:
         device=None,
     ):
         self.device = resolve_device(device)
-        refuse_mesh(use_mesh, self.device)
+        self.mesh = trainer_mesh(use_mesh, self.device)
         model = dict(model)
         self.load_path = model.pop("load_path", None)
         self.cfg = FlowCfg.from_ref(model)
@@ -101,7 +122,7 @@ class Trainer:
         self.evaluate_interval = evaluate_interval
         self.save_interval = save_interval
         self.save_path = save_path
-        self.writer = MetricsWriter(writer_path)
+        self.writer = rank0_writer(writer_path, self.mesh)
         self.test_coding = test_coding
         self.num_streams = num_streams
         self.max_eval_batches = max_eval_batches
@@ -132,7 +153,11 @@ class Trainer:
                 self.step -= self.step % K
                 print(f"resume: step {old} realigned to {self.step} "
                       f"(steps_per_dispatch={K} blocks)")
+        if self.mesh is not None:
+            replicate(self.model, self.mesh)
         self.codec = FlowCodec(self.model, num_streams=self.num_streams)
+        self.sharded_codec = (None if self.mesh is None
+                              else ShardedFlowCodec(self.codec, self.mesh))
         self.sample_gen = torch.Generator(device=self.device).manual_seed(
             seed + 1)
 
@@ -146,7 +171,8 @@ class Trainer:
         }
 
     def save(self, path: Optional[str] = None):
-        save_checkpoint(path or self.save_path, self._state())
+        if is_lead(self.mesh):
+            save_checkpoint(path or self.save_path, self._state())
 
     def restore(self, path: str):
         st = restore_train_state(path, self.model, self.optimizer,
@@ -176,12 +202,20 @@ class Trainer:
         return self.loss_fn(batch)
 
     def train_step(self, batch: torch.Tensor):
-        """One update; returns (loss, aux) on the device, no host sync."""
+        """One update; returns (loss, aux) on the device, no host sync
+        (over a mesh: this rank's shard, the global mean loss and this
+        rank's aux)."""
         loss, aux = self.loss_fn(batch)
-        self.optimizer.zero_grad()
-        loss.backward()
-        self.optimizer.step()
-        return loss.detach(), {k: v.detach() for k, v in aux.items()}
+        aux = {k: v.detach() for k, v in aux.items()}
+        return sharded_update(loss, self.optimizer, self.mesh), aux
+
+    def _global_aux(self, aux):
+        """The last step's aux over the global batch."""
+        if self.mesh is None:
+            return aux
+        return {"per_split_bpd": global_mean(aux["per_split_bpd"], self.mesh),
+                "max_z": self.mesh.all_reduce(aux["max_z"], "max"),
+                "min_z": self.mesh.all_reduce(aux["min_z"], "min")}
 
     def train_block(self, batches: torch.Tensor):
         """len(batches) steps, one per batch of a [K, B, H, W, C] block;
@@ -192,9 +226,12 @@ class Trainer:
 
     def next_block(self, K: int) -> torch.Tensor:
         """K train batches as one [K, B, H, W, C] tensor on the device, in
-        one copy."""
-        host = torch.from_numpy(np.stack(
-            [np.asarray(next(self.trainloader)) for _ in range(K)]))
+        one copy (over a mesh: this rank's part of each)."""
+        batches = [np.asarray(next(self.trainloader)) for _ in range(K)]
+        if self.mesh is not None:
+            batches = [local_batch(b, self.trainloader, self.mesh)
+                       for b in batches]
+        host = torch.from_numpy(np.stack(batches))
         if self.device.type == "cuda":
             return host.pin_memory().to(self.device, non_blocking=True)
         return host.to(self.device)
@@ -210,26 +247,33 @@ class Trainer:
         n_batches = 0
         warm = False
         for host in iter(self.testloader):
+            # over a mesh every rank holds the global batch, evaluates its
+            # rows and codes them through the sharded codec
+            host, local = eval_batch(host, self.testloader, self.mesh)
+            codec = self.codec if local is None else self.sharded_codec
             batch = self._to_device(host)
+            part = batch if local is None else self._to_device(local)
             if not warm:
                 # cuDNN handles and the allocator, outside the timed phase
-                self.eval_step(batch)
+                self.eval_step(part)
                 fence(self.device)
                 warm = True
             with timer.phase("forward"):
-                loss, _ = self.eval_step(batch)
-                loss_v = float(loss)  # a host copy: the phase's fence
+                loss, _ = self.eval_step(part)
+                # a host copy: the phase's fence
+                loss_v = float(global_mean(loss, self.mesh))
             bpds.append(loss_v / LN2)
             if self.test_coding:
                 try:
                     with timer.phase("encode"):
-                        blobs, info = self.codec.compress(batch)
+                        blobs, info = codec.compress(batch)
                     with timer.phase("decode"):
-                        rec = self.codec.decompress(blobs, info, fetch=True)
+                        rec = codec.decompress(blobs, info, fetch=True)
                     errors += int(np.sum(rec != host))
-                    real_bpds.append(self.codec.real_bpd(blobs, info))
+                    real_bpds.append(codec.real_bpd(blobs, info))
                 except ValueError:
                     # an undecodable container: the whole batch failed
+                    # (over a mesh, on every rank)
                     errors += int(host.size)
             n_batches += 1
             if self.max_eval_batches and n_batches >= self.max_eval_batches:
@@ -327,6 +371,7 @@ class Trainer:
                 last_sync = now
 
             if self._at_interval(self.evaluate_interval):
+                aux = self._global_aux(aux)
                 for i, (mx, mn, sb) in enumerate(zip(
                         *(aux[k].cpu().numpy()
                           for k in ("max_z", "min_z", "per_split_bpd")))):
@@ -342,8 +387,9 @@ class Trainer:
                     self.writer.add_scalar(
                         "coding errors", ev["coding_errors"], self.step
                     )
-                for t, img in self.sample_images().items():
-                    self.writer.add_image_grid(f"t={t}", img, self.step)
+                if is_lead(self.mesh):
+                    for t, img in self.sample_images().items():
+                        self.writer.add_image_grid(f"t={t}", img, self.step)
 
             if self._at_interval(self.save_interval):
                 self.save()

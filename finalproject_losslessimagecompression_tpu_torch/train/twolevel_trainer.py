@@ -9,6 +9,11 @@ decompresses each batch for real through `TwoLevelCodec` (on the card:
 the rANS kernels), logging `real bpd` and `coding errors`; then samples at
 four temperatures.  Checkpoints hold {params, opt_state, step}.
 
+With `use_mesh: true` over several ranks (see train/trainer.py for the
+batch and checkpoint conventions) each step is data-parallel and eval
+coding goes through `ShardedTwoLevelCodec` when the eval batch divides
+over the ranks.
+
 The trainer runs on the card unless the caller passes device="cpu".
 """
 
@@ -27,12 +32,21 @@ from ..models.idflow import log_likelihood, resolve_device
 from ..models.twolevel import TwoLevelCfg, TwoLevelFlow, twolevel_bpd
 from ..models.twolevel_codec import TwoLevelCodec
 from ..ops.dlogistic import dlogistic_sample
+from ..parallel.full_codecs import ShardedTwoLevelCodec
+from ..parallel.sharding import (
+    eval_batch,
+    global_mean,
+    is_lead,
+    local_batch,
+    replicate,
+    sharded_update,
+    trainer_mesh,
+)
 from ..registry import DATALOADERS, TRAINERS, build
 from ..utils.profiling import StepClock
 from .checkpoint import restore_train_state, save_checkpoint
-from .metrics import MetricsWriter
 from .optim import build_optimizer
-from .trainer import at_interval, refuse_mesh
+from .trainer import at_interval, rank0_writer
 
 LN2 = math.log(2.0)
 
@@ -63,7 +77,7 @@ class TwoLevelTrainer:
         device=None,
     ):
         self.device = resolve_device(device)
-        refuse_mesh(use_mesh, self.device)
+        self.mesh = trainer_mesh(use_mesh, self.device)
         model = dict(model)
         self.load_path = model.pop("load_path", None)
         self.cfg = TwoLevelCfg.from_ref(model)
@@ -77,17 +91,22 @@ class TwoLevelTrainer:
         self.evaluate_interval = evaluate_interval
         self.save_interval = save_interval
         self.save_path = save_path
-        self.writer = MetricsWriter(writer_path)
+        self.writer = rank0_writer(writer_path, self.mesh)
         self.max_eval_batches = max_eval_batches
         self.log_every = max(1, log_every)
         self.step = 0
         if self.load_path:
             self.restore(self.load_path)
+        if self.mesh is not None:
+            replicate(self.model, self.mesh)
         self.sample_gen = torch.Generator(device=self.device).manual_seed(
             seed + 1)
         self.test_coding = test_coding
         self.codec = (TwoLevelCodec(self.model, num_streams=num_streams)
                       if test_coding else None)
+        self.sharded_codec = (
+            None if self.codec is None or self.mesh is None
+            else ShardedTwoLevelCodec(self.codec, self.mesh))
 
     # -- checkpointing ----------------------------------------------------
 
@@ -96,7 +115,8 @@ class TwoLevelTrainer:
                 "opt_state": self.optimizer.state_dict(), "step": self.step}
 
     def save(self, path: Optional[str] = None):
-        save_checkpoint(path or self.save_path, self._state())
+        if is_lead(self.mesh):
+            save_checkpoint(path or self.save_path, self._state())
 
     def restore(self, path: str):
         st = restore_train_state(path, self.model, self.optimizer,
@@ -115,19 +135,19 @@ class TwoLevelTrainer:
 
     def train_step(self, batch: torch.Tensor):
         """One update; returns (loss, [rough, fine] losses) on the device,
-        no host sync."""
+        no host sync (over a mesh: this rank's shard, the global loss and
+        this rank's [rough, fine])."""
         loss, aux = self.loss_fn(batch)
-        self.optimizer.zero_grad()
-        loss.backward()
-        self.optimizer.step()
-        return loss.detach(), aux.detach()
+        return sharded_update(loss, self.optimizer, self.mesh), aux.detach()
 
     @torch.no_grad()
     def eval_step(self, batch: torch.Tensor):
         return self.loss_fn(batch)
 
     def _bpds(self, aux: torch.Tensor):
-        """(image bpd, rough bpd, fine bpd) of the two levels' losses."""
+        """(image bpd, rough bpd, fine bpd) of the two levels' losses (over
+        a mesh, averaged over the ranks)."""
+        aux = global_mean(aux, self.mesh)
         bpd1, bpd2 = (float(v) / LN2 for v in aux.cpu().numpy())
         return twolevel_bpd(self.cfg, bpd1, bpd2), bpd1, bpd2
 
@@ -138,15 +158,21 @@ class TwoLevelTrainer:
         the real coded bpd and the coding errors are logged."""
         out, real_bpds, errors = [], [], 0
         for n, host in enumerate(iter(self.testloader), 1):
+            # over a mesh every rank holds the global batch, evaluates its
+            # rows and codes them through the sharded codec
+            host, part = eval_batch(host, self.testloader, self.mesh)
+            codec = self.codec if part is None else self.sharded_codec
             host = np.ascontiguousarray(host)
             batch = torch.from_numpy(host).to(self.device)
-            out.append(self._bpds(self.eval_step(batch)[1]))
-            if self.codec is not None:
+            mine = batch if part is None else torch.from_numpy(
+                np.ascontiguousarray(part)).to(self.device)
+            out.append(self._bpds(self.eval_step(mine)[1]))
+            if codec is not None:
                 try:
-                    blobs, info = self.codec.compress(batch)
-                    rec = self.codec.decompress(blobs, info, fetch=True)
+                    blobs, info = codec.compress(batch)
+                    rec = codec.decompress(blobs, info, fetch=True)
                     errors += int(np.sum(rec != host))
-                    real_bpds.append(self.codec.real_bpd(blobs, info))
+                    real_bpds.append(codec.real_bpd(blobs, info))
                 except ValueError:
                     # an undecodable container: the whole batch failed
                     errors += int(host.size)
@@ -183,7 +209,10 @@ class TwoLevelTrainer:
         clock = StepClock()
         while self.step < self.max_step:
             self.step += 1
-            batch = torch.from_numpy(np.asarray(next(self.trainloader))).to(
+            host = np.asarray(next(self.trainloader))
+            if self.mesh is not None:
+                host = local_batch(host, self.trainloader, self.mesh)
+            batch = torch.from_numpy(np.ascontiguousarray(host)).to(
                 self.device)
             _, aux = self.train_step(batch)
             if self.step % self.log_every == 0:
@@ -201,8 +230,9 @@ class TwoLevelTrainer:
                 self.writer.add_scalar("test bpd", tb, self.step)
                 self.writer.add_scalar("test bpd 1", tb1, self.step)
                 self.writer.add_scalar("test bpd 2", tb2, self.step)
-                for t, img in self.sample_images().items():
-                    self.writer.add_image_grid(f"t={t}", img, self.step)
+                if is_lead(self.mesh):
+                    for t, img in self.sample_images().items():
+                        self.writer.add_image_grid(f"t={t}", img, self.step)
                 clock.reset()
             if self._at_interval(self.save_interval):
                 self.save()

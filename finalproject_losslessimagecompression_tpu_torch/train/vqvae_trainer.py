@@ -10,6 +10,14 @@ fetched only at the `log_every` cadence, where the losses are fetched too.
 The usage counts are trainer state: checkpoints hold {params, opt_state,
 step, counts}, so a resume restores them.
 
+With `use_mesh: true` over several ranks (see train/trainer.py for the
+batch and checkpoint conventions) the step reduces over the global batch
+as the JAX package's sharded step does: the BatchNorm batch moments are
+all_reduced sums (so the running averages are global too), the usage
+counts are all_reduced, and the encoder outputs that feed the dead-code
+reinit are all_gathered in rank order, so every rank applies the same
+reinit to the same global array.
+
 The trainer runs on the card unless the caller passes device="cpu".
 """
 
@@ -24,14 +32,23 @@ import torch
 from ..convert import vqvae_params_from_flax
 from ..data import loader as _loader  # noqa: F401  (registers loaders)
 from ..models.idflow import resolve_device
+from ..models.layers import BatchNorm
 from ..models.vqvae import build_vqvae_from_ref, vq_reinit, vqvae_reinit_params
 from ..ops import distributions as _distributions  # noqa: F401  (registers)
+from ..parallel.sharding import (
+    eval_batch,
+    global_mean,
+    is_lead,
+    local_batch,
+    replicate,
+    sharded_update,
+    trainer_mesh,
+)
 from ..registry import DATALOADERS, DISTRIBUTIONS, TRAINERS, build
 from ..utils.profiling import StepClock
 from .checkpoint import restore_train_state, save_checkpoint
-from .metrics import MetricsWriter
 from .optim import build_optimizer
-from .trainer import at_interval, refuse_mesh
+from .trainer import at_interval, rank0_writer
 
 LN2 = math.log(2.0)
 
@@ -61,7 +78,7 @@ class VQVAETrainer:
         device=None,
     ):
         self.device = resolve_device(device)
-        refuse_mesh(use_mesh, self.device)
+        self.mesh = trainer_mesh(use_mesh, self.device)
         model = dict(model)
         self.load_path = model.pop("load_path", None)
         self.reinit_interval, self.threshold = vqvae_reinit_params(model)
@@ -77,7 +94,7 @@ class VQVAETrainer:
         self.evaluate_interval = evaluate_interval
         self.save_interval = save_interval
         self.save_path = save_path
-        self.writer = MetricsWriter(writer_path)
+        self.writer = rank0_writer(writer_path, self.mesh)
         self.max_eval_batches = max_eval_batches
         self.log_every = max(1, log_every)
         self.step = 0
@@ -91,6 +108,11 @@ class VQVAETrainer:
         self.replaced = torch.zeros((), dtype=torch.int64, device=self.device)
         if self.load_path:
             self.restore(self.load_path)
+        if self.mesh is not None:
+            replicate(self.model, self.mesh)
+            for m in self.model.modules():
+                if isinstance(m, BatchNorm):
+                    m.sum_over_ranks = self.mesh.all_reduce_grad
 
     # -- checkpointing ----------------------------------------------------
 
@@ -100,7 +122,8 @@ class VQVAETrainer:
                 "step": self.step, "counts": self.counts}
 
     def save(self, path: Optional[str] = None):
-        save_checkpoint(path or self.save_path, self._state())
+        if is_lead(self.mesh):
+            save_checkpoint(path or self.save_path, self._state())
 
     def restore(self, path: str):
         st = restore_train_state(path, self.model, self.optimizer,
@@ -121,13 +144,32 @@ class VQVAETrainer:
 
     def train_step(self, batch: torch.Tensor):
         """One update; returns (loss, recloss, vqloss, counts, flat) on the
-        device, no host sync."""
+        device, no host sync.  Over a mesh: on this rank's shard, with the
+        global mean loss, the global usage counts and the global batch's
+        encoder outputs (recloss and vqloss stay this rank's)."""
         loss, recloss, vqloss, counts, flat = self.loss_fn(batch)
-        self.optimizer.zero_grad()
-        loss.backward()
-        self.optimizer.step()
-        return (loss.detach(), recloss.detach(), vqloss.detach(), counts,
+        loss = sharded_update(loss, self.optimizer, self.mesh)
+        counts = global_mean(counts, self.mesh)
+        if self.mesh is not None:
+            flat = self.mesh.all_gather(flat.detach()).reshape(
+                -1, flat.shape[-1])
+        return (loss, recloss.detach(), vqloss.detach(), counts,
                 flat.detach())
+
+    def update(self, host: np.ndarray):
+        """One training step on a loader batch (over a mesh, this rank's
+        part of it): the update, the usage counts and the dead-code reinit.
+        Returns (loss, recloss, vqloss, did, nrep) on the device (did and
+        nrep None without reinit), no host sync."""
+        if self.mesh is not None:
+            host = local_batch(host, self.trainloader, self.mesh)
+        batch = torch.from_numpy(np.ascontiguousarray(host)).to(self.device)
+        loss, recloss, vqloss, counts, flat = self.train_step(batch)
+        self.counts = self.counts + counts
+        did = nrep = None
+        if self.reinit_interval:
+            did, nrep = self.reinit(flat)
+        return loss, recloss, vqloss, did, nrep
 
     @torch.no_grad()
     def reinit(self, flat: torch.Tensor):
@@ -152,10 +194,13 @@ class VQVAETrainer:
         """(test bpd, the last batch's reconstruction as numpy)."""
         bpds, last = [], None
         for n, host in enumerate(iter(self.testloader), 1):
+            host, part = eval_batch(host, self.testloader, self.mesh)
+            if part is not None:
+                host = part
             batch = torch.from_numpy(np.ascontiguousarray(host)).to(
                 self.device)
             recloss, out = self.eval_recon(batch)
-            bpds.append(float(recloss) / LN2)
+            bpds.append(float(global_mean(recloss, self.mesh)) / LN2)
             last = out.cpu().numpy()
             if self.max_eval_batches and n >= self.max_eval_batches:
                 break
@@ -167,22 +212,18 @@ class VQVAETrainer:
         clock = StepClock()
         while self.step < self.max_step:
             self.step += 1
-            batch = torch.from_numpy(np.asarray(next(self.trainloader))).to(
-                self.device)
-            loss, recloss, vqloss, counts, flat = self.train_step(batch)
-            self.counts = self.counts + counts
-            if self.reinit_interval:
-                did, nrep = self.reinit(flat)
+            loss, recloss, vqloss, did, nrep = self.update(
+                np.asarray(next(self.trainloader)))
             if self.step % self.log_every == 0:
                 # the scalar reads sync the host, so the reinit report rides
                 # the log cadence (the reinit itself runs every step)
                 if self.reinit_interval and bool(did):
                     print(f"vq re-init: replaced {int(nrep)} codewords")
-                rl = float(recloss)
+                rl, vl = (float(v) for v in global_mean(
+                    torch.stack([recloss, vqloss]), self.mesh))
                 self.writer.add_scalar("train loss", float(loss), self.step)
                 self.writer.add_scalar("train recloss", rl, self.step)
-                self.writer.add_scalar("train vqloss", float(vqloss),
-                                       self.step)
+                self.writer.add_scalar("train vqloss", vl, self.step)
                 self.writer.add_scalar("train bpd", rl / LN2, self.step)
                 step_s = clock.tick(self.log_every)
                 if step_s is not None:

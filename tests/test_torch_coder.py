@@ -141,6 +141,9 @@ def test_port_imports_no_jax(tmp_path):
             "train.msgpack", "train.finetuner", "utils.profiling",
             "utils.plot_metrics", "cli.yamlite", "cli.train", "cli.codec",
             "cli.make_res_data", "cli.visualize", "cli.baselines",
+            "parallel", "parallel.mesh", "parallel.sharding", "parallel.vq",
+            "parallel.codec", "parallel.flow_codec", "parallel.full_codecs",
+            "parallel.multiproc", "parallel.scaling", "cli.scaling",
         )
     ] + [PORT, "chip_smoke", "chip_decode_variants", "chip_profile_read"]
     blocked = ("yaml", "PIL", "msgpack", "optax", "tensorboard",

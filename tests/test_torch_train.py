@@ -605,8 +605,11 @@ def test_cli_main_trains_two_steps_on_cpu(tmp_path):
     assert [s for s, _ in logged(tmp_path / "log", "train loss")] == [1, 2]
     assert logged(tmp_path / "log", "coding errors") == [(2, 0.0)]
     assert tckpt.load_checkpoint(str(tmp_path / "m.ckpt"), "cpu")["step"] == 2
-    with pytest.raises(NotImplementedError, match="item 15"):
+    # --distributed without the torchrun variables raises; it never falls
+    # back to one process
+    with pytest.raises(RuntimeError, match="RANK, WORLD_SIZE"):
         tcli.main(["--config", "x.yaml", "--distributed"])
+    assert not torch.distributed.is_initialized()
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
