@@ -30,7 +30,30 @@ Phases, each printing one JSON line:
             on a queue of 4 batches of 16 images; bit-exact, with launch
             counts taken over exactly that run (one launch of each coding
             kernel per level); then a torch.profiler pass over one more
-            queue (device time by kernel, idle share).
+            queue (device time by kernel, idle share, and the rANS
+            launches it recorded on the device, which must equal the
+            counts).  The codec runs at its default granularity on the
+            card, "fused" (a CUDA graph per direction: the first warm-up
+            pass runs eagerly, the second captures); the level path's
+            images/s stand beside it.
+4b. fused   the fused granularity against the level path at full width:
+            the flagship 16 x 4 queue through FlowCodec(granularity=
+            "fused") and "level": containers byte-identical, fused encode
+            -> level decode and level encode -> fused decode bit-exact,
+            one launch of each coding kernel per level in the eager first
+            call, the capturing second call (warm-up and capture count
+            none) and a replayed pass, wall, images/s and idle share of
+            each mode (profile passes `fused_profile`, `level_profile`,
+            each recording the launches on the device), capture seconds
+            and the graph pool's bytes, and two
+            decompress_many(fetch=False) results held across each other's
+            replay (the aliasing check).  An outlier queue (pixels +40,
+            far outside the window), decoded twice: with MAX_OUTLIERS 4
+            the level path decodes it (counted in level_fallbacks), with
+            the default 256 the second call's graph patches the escapes;
+            all bit-exact.  Then the residual codec (16 x 4)
+            and TwoLevelCodec(granularity="fused") (2 x 4), each
+            byte-identical to its level mode and bit-exact both ways.
 5. train    the training path at full width: the port's cli.train
             (`load_config`, its own YAML reader, then `build_trainer`) on
             configs/imagenet64.yaml's model (the flagship IDFlow, batch 16,
@@ -49,16 +72,28 @@ Phases, each printing one JSON line:
             of seeded weights with perturbed projections that the phase
             writes (under logs/chip_smoke_cli, removed at the end): 16 .npy
             files of 64x64x3 and one of 150x200x3 (12 tiles: chunks 8 + 4)
-            compressed twice (cold, warm) and decompressed with the stored
-            escape off, then a 5x6x3 file and a 64x64x3 one compressed with
-            it on (the 5x6 must take the escape: stored-png where PIL is
+            compressed three times and decompressed three times (the first
+            command of the layout runs eagerly, the second captures its
+            CUDA graph, the third replays it) with the stored escape off,
+            then a 5x6x3 file and a 64x64x3 one compressed with it on
+            (the 5x6 must take the escape: stored-png where PIL is
             installed, stored-zlib where not) and decompressed in one
             command with a flow container of the first session (stored and
             flow entries mixed); every file bit-exact, one launch of each
             coding kernel per chunk layout per level in each command's
-            direction.  Startup seconds, each command's `ok` seconds and
-            rANS launches, the CLI's TIMER phases, bytes and bpd per mode,
-            files/s and tiles/s.
+            direction.  Then the warm commands again with the codec at
+            granularity "level" (the same .lic bytes), and each mode's
+            warm pair profiled (`cli_profile_fused`, `cli_profile_level`,
+            9 launches of each kernel recorded on the device).  A serve
+            session of new chunk layouts (4 to 6 one-tile files, compress
+            and decompress each) in each mode: the fused codec captures
+            nothing.  Then `cli_one_shot`: per granularity (fused, level)
+            a CLI process of its own compresses and decompresses the 17
+            files, each the first command of its layout in the process,
+            as a one-shot command is (process and command seconds).
+            Startup seconds, each command's `ok` seconds and rANS
+            launches, the CLI's TIMER phases, bytes and bpd per mode,
+            files/s and tiles/s, capture seconds and graph pool bytes.
 7. residual the VQ-VAE residual pipeline at full width:
             configs/resflow-cond-imagenet64.yaml (ConditionalFlows with
             conv_for_cond, coupling DenseBlocks 384 x 8, prior 512 x 12,
@@ -163,11 +198,14 @@ Phases, each printing one JSON line:
             shapes then go through `paths`; files under
             logs/chip_smoke_scaleout, removed at the end.
 
-Then the `kernels` summary line (`launches_scaleout`: phase 17's counts
-by part, rank and direction), the nvidia-smi line, and last
-{"ok": true, "device": {...}}.  Any failure raises and exits non-zero; with
-no CUDA device, or outside the repository, it exits non-zero and prints no
-result.  `--quick` runs phases 1-3 only.
+Then the `kernels` summary line (`launches_fused`: phase 4b's counts by
+codec and case; `launches_profiled`: the launches the profiler recorded
+on the device in the profiled passes of phases 4, 4b, 6, 7 and 16;
+`launches_scaleout`: phase 17's counts by part, rank and direction), the
+nvidia-smi line, and last {"ok": true, "device": {...}}.  Any failure
+raises and exits non-zero; with no CUDA device, or outside the
+repository, it exits non-zero and prints no result.  `--quick` runs
+phases 1-3 only.
 """
 
 import contextlib
@@ -206,7 +244,14 @@ def kernel_wrappers():
             "rans_decode_kernel": cuda_rans.rans_decode}
 
 
+T0 = time.time()
+
+
 def emit(obj):
+    """Print a record as one JSON line; a phase's record carries `t_s`,
+    the seconds since the script started."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.time() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -602,7 +647,7 @@ def perturbed(model, seed: int = 1):
     return model.eval()
 
 
-def flagship_codec():
+def flagship_codec(granularity=None):
     from finalproject_losslessimagecompression_tpu_torch.models import (
         CouplingCfg,
         DenseBlockCfg,
@@ -617,7 +662,8 @@ def flagship_codec():
         prior_nn=DenseBlockCfg(512, 12, "ReLU", "float32"),
     )
     model = perturbed(IDFlow(cfg, device="cuda", seed=0))
-    return cfg, model, FlowCodec(model, num_streams=8192)
+    return cfg, model, FlowCodec(model, num_streams=8192,
+                                 granularity=granularity)
 
 
 def images(batch: int, queue: int, seed: int = 1):
@@ -651,12 +697,21 @@ def phase_e2e(batch: int = 16, queue: int = 4):
         log_likelihood,
     )
 
+    from finalproject_losslessimagecompression_tpu_torch.models import (
+        FlowCodec,
+    )
+
     cfg, model, codec = flagship_codec()
+    assert codec.granularity == "fused", codec.granularity
     xs_np = images(batch, queue)
     xs = [torch.from_numpy(x).cuda() for x in xs_np]
-    # warm-up pass: cuDNN handles, allocator, kernel libraries
-    codec.decompress_many(codec.compress_many(xs), fetch=True)
+    warm(codec, xs)  # an eager pass, then the capture of the two graphs
+    level = FlowCodec(model, num_streams=8192, granularity="level")
+    level.decompress_many(level.compress_many(xs), fetch=True)
     torch.cuda.synchronize()
+    t0 = time.time()
+    level.decompress_many(level.compress_many(xs), fetch=True)
+    level_wall = time.time() - t0
 
     wrappers = kernel_wrappers()
     for wrapper in wrappers.values():
@@ -693,7 +748,11 @@ def phase_e2e(batch: int = 16, queue: int = 4):
     res = {"phase": "e2e", "batch": batch, "queue": queue,
            "bit_exact": exact, "real_bpd": real_bpd,
            "analytic_bpd": analytic_bpd,
+           "granularity": codec.granularity,
            "images_per_s": batch * queue / wall, "wall_s": wall,
+           "level_images_per_s": batch * queue / level_wall,
+           "level_wall_s": level_wall,
+           "capture_s": codec.capture_seconds,
            "phases_s": {"encode": t_enc, "pack": t_pack, "decode": t_dec,
                         "verify": t_verify},
            "launches": launches,
@@ -701,34 +760,54 @@ def phase_e2e(batch: int = 16, queue: int = 4):
                                  for lv in range(nl)],
            "kernel_shapes": coded_shapes(codec, [batch])}
     emit(res)
+    # the replayed pass's launches, as the profiler records them on the
+    # device, against the wrappers' counts (a replay's capture tally)
     res["profile"] = profile_pass(
         lambda: codec.decompress_many(codec.compress_many(xs), fetch=True),
-        wall)
+        wall, want=launches)
     return res
 
 
+def rans_calls(kernels):
+    """{rANS kernel: launches the profiler recorded} of kernel_times'
+    list."""
+    return {n: sum(c for name, _, c in kernels if n in name)
+            for n in ENC + DEC}
+
+
 def profile_pass(run, unprofiled_wall: float, phase: str = "profile",
-                 top: int = 12):
+                 top: int = 12, want=None):
     """torch.profiler over one queue pass `run()`: device time by kernel
     name, of the convolutions and of the rANS kernels, and the share of
     wall time the device sat idle, against the profiled pass's own wall
-    time and against the unprofiled pass's.  Emits and returns the
-    record."""
+    time and against the unprofiled pass's.  `want` ({kernel: launches}):
+    the rANS launches the profiler must record in the pass (`rans_calls`,
+    measured on the device, replayed graphs included); the profiler has
+    dropped a kernel's records before (`device_ms_fallback`), so a pass
+    that records fewer is traced again, three times at most, and then
+    fails.  Emits and returns the record."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        run()
+    for attempt in range(1, 4):
         torch.cuda.synchronize()
-        wall = time.time() - t0
-    kernels = kernel_times(prof)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            run()
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        kernels = kernel_times(prof)
+        calls = rans_calls(kernels)
+        if want is None or calls == want:
+            break
+        assert all(calls[n] <= want[n] for n in want), (phase, calls, want)
+    assert want is None or calls == want, (phase, calls, want)
     busy_us = sum(us for _, us, _ in kernels)
     rans_us = sum(us for name, us, _ in kernels
                   if any(n in name for n in ENC + DEC))
     res = {"phase": phase, "wall_s": wall, "device_busy_s": busy_us / 1e6,
-           "rans_device_ms": rans_us / 1e3,
+           "rans_device_ms": rans_us / 1e3, "rans_calls": calls,
+           "traces": attempt,
            "conv_device_ms": conv_ms(kernels),
            "device_idle_share": 1.0 - busy_us / 1e6 / wall,
            "device_idle_share_unprofiled": 1.0 - busy_us / 1e6
@@ -737,6 +816,20 @@ def profile_pass(run, unprofiled_wall: float, phase: str = "profile",
                    for name, us, n in kernels[:top]]}
     emit(res)
     return res
+
+
+def each(n: int):
+    """{rANS kernel: n}: n launches of each."""
+    return {k: n for k in ENC + DEC}
+
+
+def warm(codec, xs):
+    """Two queue passes: the first runs eagerly (and builds cuDNN plans,
+    handles and the kernels' library), the second captures a fused codec's
+    two graphs, so the next pass replays them."""
+    for _ in range(2):
+        codec.decompress_many(codec.compress_many(xs), fetch=True)
+    torch.cuda.synchronize()
 
 
 def conv_ms(kernels) -> float:
@@ -765,6 +858,238 @@ def kernel_times(prof):
         calls[e.name()] = calls.get(e.name(), 0) + 1
     return sorted(((k, times[k], calls[k]) for k in times),
                   key=lambda kv: -kv[1])
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the fused granularity (CUDA graphs) against the level path
+# ---------------------------------------------------------------------------
+
+
+def graph_pool_bytes(codec) -> int:
+    """Bytes of the memory segments of a FlowCodec's graph pool."""
+    if codec.graph_pool is None:
+        return 0
+    pool = tuple(codec.graph_pool)
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == pool)
+
+
+def graph_stats(codecs):
+    """Capture seconds, graphs and graph pool bytes of FlowCodecs."""
+    return {"capture_s": sum(c.capture_seconds for c in codecs),
+            "captures": sum(c.captures for c in codecs),
+            "graphs": sum(len(c._graphs) for c in codecs),
+            "graph_pool_bytes": sum(graph_pool_bytes(c) for c in codecs)}
+
+
+def round_trip(codec, xs):
+    """One queue pass: compress_many, then decompress_many(fetch=True)."""
+    return codec.decompress_many(codec.compress_many(xs), fetch=True)
+
+
+def modes_agree(wrappers, fused, level, xs, xs_np, n_launch):
+    """Hold a fused codec (FlowCodec, ResidualCodec or TwoLevelCodec)
+    against its level twin on one queue: the first fused call of the
+    queue runs eagerly and the second captures its graphs (each with
+    `n_launch` launches of each kernel each way: the capture's warm-up
+    counts none), containers byte-identical, each mode decodes the
+    other's exactly, then timed passes of each (fused launches counted)."""
+
+    def run(codec, packed=None):
+        return (codec.compress_many(xs) if packed is None
+                else codec.decompress_many(packed, fetch=True))
+
+    exact = lambda got: all(  # noqa: E731
+        np.array_equal(r, x) for r, x in zip(got, xs_np))
+    calls = {}
+    for call in ("first_call", "capture_call"):
+        reset_launches(wrappers)
+        packed_f, t_c = timed(lambda: run(fused))
+        recs, t_d = timed(lambda: run(fused, packed_f))
+        launches = launch_counts(wrappers)
+        assert all(v == n_launch for v in launches.values()), launches
+        assert exact(recs), f"fused round trip ({call}) is not bit-exact"
+        calls[call] = {"launches": launches,
+                       "s": {"compress": t_c, "decompress": t_d},
+                       "packed": packed_f}
+    assert calls["first_call"].pop("packed") == calls["capture_call"].pop(
+        "packed"), "eager and captured fused containers differ"
+    packed_l = run(level)
+    assert packed_f == packed_l, "fused and level containers differ"
+    assert exact(run(level, packed_f)), "level decode of fused containers"
+    assert exact(run(fused, packed_l)), "fused decode of level containers"
+    walls = {}
+    for name, codec in (("fused", fused), ("level", level), ("fused", fused)):
+        reset_launches(wrappers)
+        t0 = time.time()
+        assert exact(run(codec, run(codec))), name
+        walls.setdefault(name, []).append(time.time() - t0)
+        if name == "fused":
+            launches = launch_counts(wrappers)
+            assert all(v == n_launch for v in launches.values()), launches
+    images = sum(x.shape[0] for x in xs_np)
+    return {"byte_identical": True, "cross_decode_exact": True,
+            "launches_first_call": calls["first_call"]["launches"],
+            "launches_capture_call": calls["capture_call"]["launches"],
+            "launches": launches,
+            "first_call_s": calls["first_call"]["s"],
+            "capture_call_s": calls["capture_call"]["s"],
+            "wall_s": walls,
+            "images_per_s": {k: images / min(v) for k, v in walls.items()}}
+
+
+def idle_shares(walls, fused, level, xs, n_launch, prefix=""):
+    """Each mode's device idle share over its best unprofiled wall, from a
+    profiled queue pass (`<prefix><mode>_profile`) that must record
+    `n_launch` launches of each rANS kernel; returns the profiles."""
+    return {name: profile_pass(lambda c=codec: round_trip(c, xs),
+                               min(walls[name]),
+                               phase=f"{prefix}{name}_profile", top=6,
+                               want=each(n_launch))
+            for name, codec in (("fused", fused), ("level", level))}
+
+
+def escape_matrix(wrappers, model, fused, nsplit):
+    """An outlier queue through the flagship, decoded twice by each codec:
+    with MAX_OUTLIERS 4 the level path decodes it both times (counted),
+    with the default the first call runs the fused program eagerly and
+    the second captures it, so the graph patches the escapes."""
+    from finalproject_losslessimagecompression_tpu_torch.codec.container import (  # noqa: E501
+        unpack_streams,
+    )
+    from finalproject_losslessimagecompression_tpu_torch.models import (
+        FlowCodec,
+    )
+
+    x = images(2, 1, seed=7)[0]
+    x[:, ::11, ::11, 0] += 40.0  # far outside mean +- 4
+    packed = fused.compress_many([torch.from_numpy(x).cuda()])
+    counts = [unpack_streams(b).oow_count for b in packed[0][0]]
+    assert 4 < max(counts) <= fused.MAX_OUTLIERS, counts
+    four = FlowCodec(model, num_streams=8192)
+    four.MAX_OUTLIERS = 4
+    out = {"oow_counts": counts}
+    for name, codec in (("max_outliers_4", four), ("max_outliers_256",
+                                                   fused)):
+        before = (codec.level_fallbacks, codec.captures)
+        for _ in range(2):
+            reset_launches(wrappers)
+            rec = codec.decompress_many(packed, fetch=True)[0]
+            assert np.array_equal(rec, x), f"{name}: escapes not bit-exact"
+            launches = launch_counts(wrappers)
+            assert launches == {n: nsplit if n in DEC else 0
+                                for n in launches}, launches
+        out[name] = {"level_fallbacks": codec.level_fallbacks - before[0],
+                     "captures": codec.captures - before[1],
+                     "launches": launches, "bit_exact": True}
+    assert out["max_outliers_4"]["level_fallbacks"] == 2
+    assert out["max_outliers_4"]["captures"] == 0
+    assert out["max_outliers_256"]["level_fallbacks"] == 0
+    assert out["max_outliers_256"]["captures"] == 1
+    return out
+
+
+def fused_residual(wrappers, batch: int = 16, queue: int = 4):
+    """ResidualCodec (configs/resflow-cond-imagenet64.yaml at full width)
+    with a fused flow codec against one with a level flow codec."""
+    from finalproject_losslessimagecompression_tpu_torch.cli.train import (
+        load_config,
+    )
+    from finalproject_losslessimagecompression_tpu_torch.models import (
+        FlowCfg,
+        FlowCodec,
+        IDFlow,
+        ResidualCodec,
+        build_vqvae_from_ref,
+    )
+
+    train = load_config(os.path.join(ROOT, RES_CONFIG))["train"]
+    cfg = FlowCfg.from_ref(train["flows"])
+    flow = perturbed(IDFlow(cfg, device="cuda", seed=0))
+    vqvae = build_vqvae_from_ref(train["vqvae"], device="cuda", seed=2).eval()
+    size = tuple(train["input_size"])
+    fused = ResidualCodec(vqvae, FlowCodec(flow, num_streams=4096), size)
+    level = ResidualCodec(vqvae, FlowCodec(flow, num_streams=4096,
+                                           granularity="level"), size)
+    xs_np = images(batch, queue, seed=5)
+    xs = [torch.from_numpy(x).cuda() for x in xs_np]
+    round_trip(level, xs)  # cuDNN plans of the VQ-VAE and the flows
+    out = modes_agree(wrappers, fused, level, xs, xs_np, cfg.nsplit)
+    profiles = idle_shares(out["wall_s"], fused, level, xs, cfg.nsplit,
+                           "residual_")
+    out["idle_share"] = {k: p["device_idle_share_unprofiled"]
+                         for k, p in profiles.items()}
+    out["profiled_launches"] = {k: p["rans_calls"]
+                                for k, p in profiles.items()}
+    return {**out, **graph_stats([fused.codec])}
+
+
+def fused_twolevel(wrappers, batch: int = 4, queue: int = 2):
+    """TwoLevelCodec(granularity="fused") against "level" on
+    configs/config_twolevel.yaml's model at full width."""
+    from finalproject_losslessimagecompression_tpu_torch.cli.train import (
+        load_config,
+    )
+    from finalproject_losslessimagecompression_tpu_torch.models import (
+        TwoLevelCfg,
+        TwoLevelCodec,
+        TwoLevelFlow,
+    )
+
+    cfg = TwoLevelCfg.from_ref(load_config(os.path.join(ROOT, TL_CONFIG))[
+        "train"]["model"])
+    model = perturbed(TwoLevelFlow(cfg, device="cuda", seed=0))
+    fused = TwoLevelCodec(model, num_streams=4096, granularity="fused")
+    level = TwoLevelCodec(model, num_streams=4096)
+    imgs = twolevel_images(batch * queue, 16)
+    xs_np = [imgs[i * batch:(i + 1) * batch] for i in range(queue)]
+    xs = [torch.from_numpy(x).cuda() for x in xs_np]
+    round_trip(level, xs)
+    out = modes_agree(wrappers, fused, level, xs, xs_np,
+                      cfg.rough.nsplit + cfg.fine.nsplit)
+    return {**out, **graph_stats([fused.rough_codec, fused.fine_codec])}
+
+
+def phase_fused(wrappers, batch: int = 16, queue: int = 4):
+    """Phase 4b: the fused granularity against the level path."""
+    from finalproject_losslessimagecompression_tpu_torch.models import (
+        FlowCodec,
+    )
+
+    t0 = time.time()
+    cfg, model, fused = flagship_codec("fused")
+    level = FlowCodec(model, num_streams=8192, granularity="level")
+    xs_np = images(batch, queue, seed=2)
+    xs = [torch.from_numpy(x).cuda() for x in xs_np]
+    round_trip(level, xs)  # cuDNN plans, so capture_s is the graphs' own
+    flagship = modes_agree(wrappers, fused, level, xs, xs_np, cfg.nsplit)
+    flagship.update(graph_stats([fused]))
+    # the aliasing check: two decompress_many(fetch=False) results, the
+    # second replay after the first result was returned
+    xs2_np = images(batch, queue, seed=3)
+    packed1 = fused.compress_many(xs)
+    packed2 = fused.compress_many([torch.from_numpy(x).cuda()
+                                   for x in xs2_np])
+    got1 = fused.decompress_many(packed1)
+    got2 = fused.decompress_many(packed2)
+    for got, want in ((got1, xs_np), (got2, xs2_np)):
+        assert all(np.array_equal(g.cpu().numpy(), x)
+                   for g, x in zip(got, want)), "a replay overwrote a result"
+    flagship["aliasing_check"] = True
+    profiles = idle_shares(flagship["wall_s"], fused, level, xs, cfg.nsplit)
+    idle = {k: p["device_idle_share_unprofiled"]
+            for k, p in profiles.items()}
+    flagship["profiled_launches"] = {k: p["rans_calls"]
+                                     for k, p in profiles.items()}
+    escapes = escape_matrix(wrappers, model, fused, cfg.nsplit)
+    del fused, level, model
+    res = {"phase": "fused", "batch": batch, "queue": queue,
+           "flagship": flagship, "idle_share": idle, "escapes": escapes,
+           "residual": fused_residual(wrappers),
+           "twolevel": fused_twolevel(wrappers)}
+    res["phase_s"] = time.time() - t0
+    emit(res)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1004,6 +1329,7 @@ def phase_cli(wrappers):
     )
     from finalproject_losslessimagecompression_tpu_torch.models import (
         FlowCfg,
+        FlowCodec,
         IDFlow,
     )
 
@@ -1029,7 +1355,7 @@ def phase_cli(wrappers):
     torch.cuda.synchronize()
     startup_s = time.time() - t0
 
-    def command(verb, srcs, stored_fallback):
+    def command(verb, srcs, stored_fallback, pipe=pipe):
         paths = [p for p, _ in srcs] if verb == "compress" else [
             os.path.join(outdir, os.path.splitext(os.path.basename(p))[0]
                          + ".lic") for p, _ in srcs]
@@ -1044,9 +1370,10 @@ def phase_cli(wrappers):
         return {"command": verb, "files": len(srcs), "ok_s": float(reply[1]),
                 "launches": {n: w.launches for n, w in wrappers.items()}}
 
-    cmds = [command("compress", flow_srcs, False),
-            command("compress", flow_srcs, False),
-            command("decompress", flow_srcs, False)]
+    # three commands each way: the first of a chunk layout runs eagerly,
+    # the second captures its graph, the third replays it
+    cmds = ([command("compress", flow_srcs, False) for _ in range(3)]
+            + [command("decompress", flow_srcs, False) for _ in range(3)])
     check_decoded(outdir, flow_srcs)
 
     def expect(c, layouts):
@@ -1063,6 +1390,8 @@ def phase_cli(wrappers):
                               + ".lic") for p, _ in flow_srcs]
     flow_stats = lic_stats(flow_lics)
     assert list(flow_stats) == ["flow"], flow_stats
+    # (the escape session below rewrites img01_64x64.lic with its own)
+    written = [open(p, "rb").read() for p in flow_lics]
     # the escape on: both files are flow-coded (one-tile chunks), then the
     # smaller container is written.  The decompress mixes those containers
     # with one flow container of the first session, so the stored and the
@@ -1070,7 +1399,7 @@ def phase_cli(wrappers):
     mixed = escape_srcs + flow_srcs[:1]
     cmds += [command("compress", escape_srcs, True),
              command("decompress", mixed, True)]
-    for c in cmds[3:]:
+    for c in cmds[6:]:
         expect(c, 1)
     check_decoded(outdir, mixed)
     esc_lics = [os.path.join(outdir, os.path.splitext(os.path.basename(p))[0]
@@ -1078,7 +1407,31 @@ def phase_cli(wrappers):
     assert lic_stats(esc_lics[:1]).keys() <= {"stored-zlib", "stored-png"}
     mixed_stats = lic_stats(esc_lics + flow_lics[:1])
     assert "flow" in mixed_stats and len(mixed_stats) > 1, mixed_stats
-    warm, dec = cmds[1]["ok_s"], cmds[2]["ok_s"]
+    # the warm session again with the codec at granularity "level": the
+    # same files byte for byte; then each mode's two commands profiled
+    level_pipe = C._PlainPipeline(
+        FlowCodec(pipe.codec.model, num_streams=4096, granularity="level"),
+        pipe.fingerprint)
+    level_cmds = [command("compress", flow_srcs, False, level_pipe),
+                  command("decompress", flow_srcs, False, level_pipe)]
+    for c in level_cmds:
+        expect(c, len(batches))
+    assert [open(p, "rb").read() for p in flow_lics] == written, \
+        "level and fused .lic files differ"
+    check_decoded(outdir, flow_srcs)
+    profiles = {
+        name: profile_pass(
+            lambda p=p: [command(v, flow_srcs, False, p)
+                         for v in ("compress", "decompress")],
+            sum(c["ok_s"] for c in warm_cmds), phase=f"cli_profile_{name}",
+            top=6, want=each(len(batches) * cfg.nsplit))
+        for name, p, warm_cmds in (("fused", pipe, [cmds[2], cmds[5]]),
+                                   ("level", level_pipe, level_cmds))}
+    distinct = distinct_layouts(command, (pipe, level_pipe), flow_srcs,
+                                cfg.nsplit)
+    one_shot = one_shot_commands(config, ckpt, flow_srcs, len(batches)
+                                 * cfg.nsplit)
+    warm, dec = cmds[2]["ok_s"], cmds[5]["ok_s"]
     res = {"phase": "cli", "config": TRAIN_CONFIG, "num_streams": 4096,
            # the stored escape is stored-png with PIL, stored-zlib without
            "pil": importlib.util.find_spec("PIL") is not None,
@@ -1088,14 +1441,80 @@ def phase_cli(wrappers):
                      "escape_session": lic_stats(esc_lics),
                      "mixed_decompress": mixed_stats},
            "chunk_batches": batches,
+           "granularity": pipe.codec.granularity,
+           **graph_stats([pipe.codec]),
            "kernel_shapes": coded_shapes(pipe.codec, batches),
            "compress_files_per_s": len(flow_srcs) / warm,
            "compress_tiles_per_s": tiles / warm,
            "decompress_files_per_s": len(flow_srcs) / dec,
            "decompress_tiles_per_s": tiles / dec,
+           "level_commands": level_cmds,
+           "idle_share": {name: prof["device_idle_share_unprofiled"]
+                          for name, prof in profiles.items()},
+           "profiled_launches": {name: prof["rans_calls"]
+                                 for name, prof in profiles.items()},
+           "distinct_layouts": distinct, "one_shot": one_shot,
            "bit_exact": True}
     emit(res)
     return res
+
+
+def distinct_layouts(command, pipes, srcs, nsplit, sizes=(4, 5, 6)):
+    """A serve session whose every command meets a chunk layout not met
+    before (the first `k` one-tile files, one chunk of one tile each), in
+    each mode: compress then decompress per set.  The fused codec runs
+    each eagerly and captures nothing, so its graphs and pool stay as they
+    were."""
+    out = {}
+    for name, pipe in zip(("fused", "level"), pipes):
+        before = graph_stats([pipe.codec])
+        runs = []
+        for k in sizes:
+            for verb in ("compress", "decompress"):
+                c = command(verb, srcs[:k], False, pipe)
+                assert c["launches"] == {
+                    n: nsplit if (n in DEC) == (verb == "decompress") else 0
+                    for n in c["launches"]}, c
+                runs.append({"files": k, "command": verb,
+                             "ok_s": c["ok_s"]})
+            check_decoded(os.path.join(CLI_DIR, "out"), srcs[:k])
+        after = graph_stats([pipe.codec])
+        assert after["captures"] == before["captures"], (before, after)
+        out[name] = {"runs": runs, "total_s": sum(r["ok_s"] for r in runs),
+                     "graphs_before": before, "graphs_after": after}
+    return out
+
+
+def one_shot_commands(config, ckpt, srcs, n_launch):
+    """The file CLI in a fresh process per granularity (fused, level): a
+    serve session of one compress and one decompress of `srcs`, each the
+    first command of its chunk layout in its process, as a one-shot
+    command is.  Per process: its wall, each command's `ok` seconds and
+    its launches (`n_launch` of each kernel in each direction)."""
+    out = {}
+    for name in ("fused", "level"):
+        d = os.path.join(CLI_DIR, f"one_shot_{name}")
+        lics = [os.path.join(d, os.path.splitext(os.path.basename(p))[0]
+                             + ".lic") for p, _ in srcs]
+        session = (f"compress {d} " + " ".join(p for p, _ in srcs)
+                   + f"\ndecompress {d} " + " ".join(lics) + "\nquit\n")
+        t0 = time.time()
+        child = subprocess.run(
+            [sys.executable, "-c", CLI_CHILD, "serve", "--config", config,
+             "--ckpt", ckpt, "--no-stored-fallback", "--ext", ".npy",
+             "--granularity", name], input=session, cwd=ROOT, check=True,
+            capture_output=True, text=True)
+        wall = time.time() - t0
+        lines = child.stdout.splitlines()
+        launches = json.loads(lines[-1])
+        oks = [float(ln.split()[1]) for ln in lines if ln.startswith("ok ")]
+        assert len(oks) == 2, lines
+        assert launches == each(n_launch), (name, launches)
+        check_decoded(d, srcs)
+        out[name] = {"process_s": wall, "compress_s": oks[0],
+                     "decompress_s": oks[1], "launches": launches}
+    emit({"phase": "cli_one_shot", **out})
+    return out
 
 
 def phase_residual(wrappers, batch: int = 16, queue: int = 4):
@@ -1125,8 +1544,7 @@ def phase_residual(wrappers, batch: int = 16, queue: int = 4):
                         tuple(train["input_size"]))
     xs_np = images(batch, queue, seed=5)
     xs = [torch.from_numpy(x).cuda() for x in xs_np]
-    res.decompress_many(res.compress_many(xs), fetch=True)  # warm-up
-    torch.cuda.synchronize()
+    warm(res, xs)
 
     for w in wrappers.values():
         w.launches = 0
@@ -1161,13 +1579,14 @@ def phase_residual(wrappers, batch: int = 16, queue: int = 4):
            "phases_s": {"vq_encode": t_vq, "reconstruction": t_rec,
                         "flow_encode": t_flow, "pack": t_pack,
                         "decode": t_dec},
-           "launches": launches,
+           "launches": launches, "granularity": res.codec.granularity,
+           **graph_stats([res.codec]),
            "streams_per_level": [res.codec._level_S(lv, batch)
                                  for lv in range(cfg.nsplit)]}
     emit(out)
-    profile_pass(lambda: res.decompress_many(res.compress_many(xs),
-                                             fetch=True),
-                 wall, phase="residual_profile")
+    out["profile"] = profile_pass(
+        lambda: res.decompress_many(res.compress_many(xs), fetch=True),
+        wall, phase="residual_profile", want=launches)
 
     # the same pipeline through the CLI, the VQ checkpoint written here
     flow_ckpt = save_params(flow, os.path.join(CLI_DIR, "resflow.ckpt"))
@@ -1838,8 +2257,7 @@ def phase_padded(wrappers, flagship, e2e, multiples=(16, 64),
         padded = IDFlow(with_growth_multiple(cfg, mult), device="cuda").eval()
         padded.load_state_dict(pad_growth_params(model.state_dict(), mult))
         pcodec = FlowCodec(padded, num_streams=8192)
-        # warm-up: the wider convs' cuDNN plans
-        pcodec.decompress_many(pcodec.compress_many(xs), fetch=True)
+        warm(pcodec, xs)  # the wider convs' cuDNN plans, the graphs
         reset_launches(wrappers)
         t1 = time.time()
         packed = pcodec.compress_many(xs)
@@ -1855,7 +2273,7 @@ def phase_padded(wrappers, flagship, e2e, multiples=(16, 64),
         prof = profile_pass(
             lambda: pcodec.decompress_many(pcodec.compress_many(xs),
                                            fetch=True),
-            wall, phase=f"padded_profile_{mult}", top=8)
+            wall, phase=f"padded_profile_{mult}", top=8, want=launches)
         passes.append({
             "growth_multiple": mult, "bit_exact": True,
             "images_per_s": batch * queue / wall, "wall_s": wall,
@@ -1864,6 +2282,7 @@ def phase_padded(wrappers, flagship, e2e, multiples=(16, 64),
             "launches": launches, "latents_differing": differ,
             "latents_total": sum(t.numel() for t in lat),
             "conv_device_ms": prof["conv_device_ms"],
+            "rans_calls": prof["rans_calls"],
             "device_busy_s": prof["device_busy_s"],
             "device_idle_share_unprofiled":
             prof["device_idle_share_unprofiled"],
@@ -2370,7 +2789,46 @@ def launches_scaleout(scaleout, name):
     return out
 
 
-def kernels_line(rows, e2e, train, cli, residual, pipes, tools, scaleout):
+def launches_fused(fused, name):
+    """A kernel's launch counts in phase 4b, by codec and case."""
+    return {"flagship": fused["flagship"]["launches"][name],
+            "flagship_first_call": fused["flagship"][
+                "launches_first_call"][name],
+            "flagship_capture_call": fused["flagship"][
+                "launches_capture_call"][name],
+            "escapes_level_path": fused["escapes"]["max_outliers_4"][
+                "launches"][name],
+            "escapes_in_graph": fused["escapes"]["max_outliers_256"][
+                "launches"][name],
+            "residual": fused["residual"]["launches"][name],
+            "twolevel": fused["twolevel"]["launches"][name]}
+
+
+def launches_profiled(e2e, fused, cli, residual, tools, name):
+    """A kernel's launches as the profiler recorded them on the device in
+    the profiled passes of the main paths (replayed graphs under the fused
+    default; each was asserted equal to the wrappers' counts)."""
+    out = {}
+    if e2e:
+        out["e2e"] = e2e["profile"]["rans_calls"][name]
+    if fused:
+        for mode, calls in fused["flagship"]["profiled_launches"].items():
+            out[f"flagship_{mode}"] = calls[name]
+        for mode, calls in fused["residual"]["profiled_launches"].items():
+            out[f"residual_{mode}"] = calls[name]
+    if cli:
+        for mode, calls in cli["profiled_launches"].items():
+            out[f"cli_{mode}"] = calls[name]
+    if residual:
+        out["residual"] = residual["profile"]["rans_calls"][name]
+    if tools:
+        for p in tools["padded"]["passes"][1:]:
+            out[f"padded_{p['growth_multiple']}"] = p["rans_calls"][name]
+    return out or None
+
+
+def kernels_line(rows, e2e, fused, train, cli, residual, pipes, tools,
+                 scaleout):
     head = [r for r in rows if r["S"] == 384 and not r["seeded"]][0]
     out = []
     for key, name, replaces, extra in (
@@ -2385,6 +2843,10 @@ def kernels_line(rows, e2e, train, cli, residual, pipes, tools, scaleout):
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": replaces, **extra,
             "launches": e2e["launches"][name] if e2e else None,
+            "launches_profiled": launches_profiled(e2e, fused, cli,
+                                                   residual, tools, name),
+            "launches_fused": (launches_fused(fused, name) if fused
+                               else None),
             "launches_train_eval": (train["launches_eval"][name] if train
                                     else None),
             "launches_cli": ({c["command"] + str(i): c["launches"][name]
@@ -2432,9 +2894,10 @@ def main(argv) -> int:
     smi = phase_device()
     depth_ns = phase_depth()
     rows, _, _ = phase_kernels(depth_ns)
-    e2e = train = cli = residual = pipes = tools = scaleout = None
+    e2e = fused = train = cli = residual = pipes = tools = scaleout = None
     if "--quick" not in argv:
         e2e = phase_e2e()
+        fused = phase_fused(kernel_wrappers())
         train = phase_train(kernel_wrappers())
         cli = phase_cli(kernel_wrappers())
         residual = phase_residual(kernel_wrappers())
@@ -2446,7 +2909,7 @@ def main(argv) -> int:
         tools = phase_tools(kernel_wrappers(), e2e)
         scaleout = phase_scaleout(kernel_wrappers(), train)
         path_kernels(rows, (tools["padded"], scaleout), depth_ns)
-    emit(kernels_line(rows, e2e, train, cli, residual, pipes, tools,
+    emit(kernels_line(rows, e2e, fused, train, cli, residual, pipes, tools,
                       scaleout))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

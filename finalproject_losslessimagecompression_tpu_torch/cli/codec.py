@@ -39,7 +39,13 @@ nbits, pipeline kind, per-chunk segment counts, blob lengths and a model
 fingerprint: a hash of the model config, the compute variant (fused 1x1,
 dtype, and the backend, torch-cuda or torch-cpu) and the checkpoints'
 bytes.  A container written by another checkpoint, variant, backend or by
-the JAX package fails loudly instead of decoding garbage.
+the JAX package fails loudly instead of decoding garbage.  The codecs run
+at `--granularity` (default: the codec's own, so the plain and residual
+flows run "fused" on the card: a command's queue runs eagerly the first
+time its chunk layout is met and as a CUDA graph replay from the second
+time on, at most FlowCodec.MAX_GRAPHS graphs kept; a two-level model runs
+"level", as in JAX); containers are byte-identical across the
+granularities, so the fingerprint carries none, as in JAX.
 
 Each file is stored as the smaller of the flow container and a stored
 escape (`stored-png`, or `stored-zlib` for channel counts PNG does not take
@@ -209,14 +215,15 @@ def _override_dense_dtype(node, dtype: str):
 
 
 def _load_model(config_path: str, ckpt_path: str, num_streams: int,
-                vq_ckpt: str = None, dtype: str = None, device=None):
+                vq_ckpt: str = None, dtype: str = None, device=None,
+                granularity: str = None):
     with TIMER.phase("startup:load_model"):
         return _load_model_timed(config_path, ckpt_path, num_streams,
-                                 vq_ckpt, dtype, device)
+                                 vq_ckpt, dtype, device, granularity)
 
 
 def _load_model_timed(config_path, ckpt_path, num_streams, vq_ckpt, dtype,
-                      device):
+                      device, granularity):
     from ..convert import (
         params_from_flax,
         twolevel_params_from_flax,
@@ -257,7 +264,8 @@ def _load_model_timed(config_path, ckpt_path, num_streams, vq_ckpt, dtype,
                          params_from_flax)
         vqvae = _restore(build_vqvae_from_ref(vq_cfg, device=device),
                          vq_ckpt, device, vqvae_params_from_flax)
-        res = ResidualCodec(vqvae, FlowCodec(model, num_streams=num_streams),
+        res = ResidualCodec(vqvae, FlowCodec(model, num_streams,
+                                             granularity),
                             tuple(train["input_size"]))
         fp = _fingerprint(flows, _variant_tag(cfg, device), ckpt_path,
                           vq_ckpt)
@@ -271,12 +279,12 @@ def _load_model_timed(config_path, ckpt_path, num_streams, vq_ckpt, dtype,
                          twolevel_params_from_flax)
         fp = _fingerprint(model_cfg, _variant_tag(tcfg, device), ckpt_path)
         return _TwoLevelPipeline(
-            TwoLevelCodec(model, num_streams=num_streams), fp)
+            TwoLevelCodec(model, num_streams, granularity or "level"), fp)
     cfg = FlowCfg.from_ref(model_cfg)
     model = _restore(IDFlow(cfg, device=device), ckpt_path, device,
                      params_from_flax)
     fp = _fingerprint(model_cfg, _variant_tag(cfg, device), ckpt_path)
-    return _PlainPipeline(FlowCodec(model, num_streams=num_streams), fp)
+    return _PlainPipeline(FlowCodec(model, num_streams, granularity), fp)
 
 
 def _pil_image(what: str):
@@ -468,6 +476,11 @@ def compress_files(pipe, in_paths, out_paths, stored_fallback=True,
     return modes
 
 
+def compress_file(pipe, in_path, out_path, stored_fallback=True):
+    """compress_files of one file."""
+    return compress_files(pipe, [in_path], [out_path], stored_fallback)[0]
+
+
 def _read_lic(pipe, in_path):
     """-> (mode, [(segments, info)] per chunk, orig shape), with loud
     validation.  Stored-mode containers are model-independent, so the
@@ -571,6 +584,11 @@ def decompress_files(pipe, in_paths, out_paths):
             print(f"{in_path} -> {out_path}: {H}x{W}x{C} [{mode}]")
 
 
+def decompress_file(pipe, in_path, out_path):
+    """decompress_files of one file."""
+    decompress_files(pipe, [in_path], [out_path])
+
+
 def _out_path(path, ext, outdir):
     base = os.path.splitext(os.path.basename(path))[0]
     return os.path.join(outdir, base + ext)
@@ -658,11 +676,17 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' to run on "
                     "the CPU)")
+    ap.add_argument("--granularity", default=None,
+                    choices=["fused", "level", "nn"],
+                    help="the codecs' granularity (default: the codec's "
+                    "own, fused on the card and level on the CPU; "
+                    "level for a two-level model); the containers are the "
+                    "same in every mode")
     args = ap.parse_args(argv)
 
     pipe = _load_model(args.config, args.ckpt, args.num_streams,
                        vq_ckpt=args.vq_ckpt, dtype=args.dtype,
-                       device=args.device)
+                       device=args.device, granularity=args.granularity)
     if args.mode == "serve":
         serve(pipe, stored_fallback=not args.no_stored_fallback,
               max_chunk=args.max_chunk, ext=args.ext)

@@ -14,7 +14,11 @@ from typing import List, Sequence
 import torch
 
 from .container import pack_streams, unpack_streams
-from .interleaved import interleaved_decode_many, interleaved_encode_many
+from .interleaved import (
+    interleaved_decode_many,
+    interleaved_encode_many,
+    upload,
+)
 
 
 def encode_tensors_deferred(items, num_streams: int = 8192, seeds=None,
@@ -53,7 +57,9 @@ def decode_streams_deferred_many(encs, means, logscales, fills=None,
     limbs.  For bits-back chains the lo limbs of a seeded decode are the
     donor container's omitted words: pass them as the donor's fill, and
     pass the donor's donated count as this decode's tail start so the
-    check skips the seeded prefix."""
+    check skips the seeded prefix.  Counts, tail starts and escapes may be
+    device tensors (a container's padded form), so that the whole decode
+    reads no host value."""
     for enc, mean in zip(encs, means):
         if enc.n != mean.numel():
             raise ValueError(
@@ -67,22 +73,33 @@ def decode_streams_deferred_many(encs, means, logscales, fills=None,
     out = []
     for enc, mean, tail_start, (vals, hi, lo) in zip(encs, means,
                                                      tail_starts, decoded):
-        if enc.oow_count:
-            # patch escaped out-of-window symbols with their true values
-            dev = vals.device
-            vals = vals.clone()
-            vals[torch.as_tensor(enc.oow_idx, dtype=torch.int64,
-                                 device=dev)] = torch.as_tensor(
-                enc.oow_vals, dtype=torch.int32, device=dev)
-        # a successful decode returns each stream to 2^32 | seed: hi == 1,
-        # and lo == 0 for every stream past `tail_start` (seeded streams' lo
-        # limbs are the donor's words, checked by the chain's last, unseeded
-        # level)
-        idx = torch.arange(lo.shape[0], device=lo.device)
-        ok = torch.all(hi == 1) & torch.all((idx < tail_start) | (lo == 0))
+        if enc.oow_idx is not None:
+            vals = patch_escapes(vals, enc.oow_idx, enc.oow_vals)
         x = (vals.to(torch.float32) / 256.0).reshape(mean.shape)
-        out.append((x, ok, lo))
+        out.append((x, states_ok(hi, lo, tail_start), lo))
     return out
+
+
+def patch_escapes(vals: torch.Tensor, idx, true_vals) -> torch.Tensor:
+    """The decoded bins [n] with the escaped out-of-window symbols' true
+    values scattered in.  An index equal to n writes to a dump slot past
+    the end, so a pair padded to a fixed length patches any count up to it
+    without a host branch."""
+    dev = vals.device
+    out = torch.cat([vals, vals.new_zeros(1)])
+    out.scatter_(0, torch.as_tensor(idx, dtype=torch.int64, device=dev),
+                 torch.as_tensor(true_vals, device=dev).to(vals.dtype))
+    return out[:-1]
+
+
+def states_ok(hi: torch.Tensor, lo: torch.Tensor, tail_start=0):
+    """The state invariant of a decode (0-d bool tensor): a successful
+    decode returns each stream to 2^32 | seed, so hi == 1, and lo == 0 for
+    every stream from `tail_start` on (an int or a 0-d tensor): a seeded
+    level's lo limbs below it are its donor's words, checked by the chain's
+    last, unseeded level."""
+    idx = torch.arange(lo.shape[0], device=lo.device)
+    return torch.all(hi == 1) & torch.all((idx < tail_start) | (lo == 0))
 
 
 def decode_streams_deferred(enc, mean, logscale, fill=None, tail_start=0):
@@ -94,7 +111,8 @@ def decode_streams_deferred(enc, mean, logscale, fill=None, tail_start=0):
 
 def decode_tensor_deferred(blob: bytes, mean, logscale):
     """Decode without a host sync: returns (x, ok)."""
-    x, ok, _ = decode_streams_deferred(unpack_streams(blob), mean, logscale)
+    x, ok, _ = decode_streams_deferred(
+        upload([unpack_streams(blob)], mean.device)[0], mean, logscale)
     return x, ok
 
 

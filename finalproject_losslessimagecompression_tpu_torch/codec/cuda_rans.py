@@ -24,6 +24,12 @@ kernel once per level.  What bounds them on an H100: the per-stream
 dependence over k steps (latency for the small containers, issue rate for
 the large ones: a container is one CTA on one SM); they move few bytes.
 
+Launch counts.  Each wrapper's `launches` adds one where it launches its
+kernel and nowhere else.  A launch made while a CUDA graph is captured
+(or during the capture's warm-up, inside `record_launches`) is tallied
+into the capture instead, and `CountedGraph.replay` adds the graph's
+tally to the counters on every replay, since a replay runs no Python.
+
 Dispatch is by device: a CUDA tensor launches the kernel (or raises), a CPU
 tensor runs the plain version in codec/interleaved.py (`encode_plain`,
 `decode_plain`, `cdf_prepass_plain`), which computes the same function.
@@ -37,6 +43,7 @@ A failed build or launch raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 import os
@@ -119,6 +126,52 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+# per thread, the tallies of the captures in progress (innermost last)
+_captures = threading.local()
+
+
+def _launched(wrapper) -> None:
+    """Count one launch of `wrapper`'s kernel: into the innermost
+    `record_launches` tally while one is open, else on its counter."""
+    stack = getattr(_captures, "stack", None)
+    if stack:
+        stack[-1][wrapper] = stack[-1].get(wrapper, 0) + 1
+    else:
+        wrapper.launches += 1
+
+
+@contextlib.contextmanager
+def record_launches():
+    """Within this block, launches are tallied into the yielded dict
+    ({wrapper: launches}) and not added to the wrappers' counters: the
+    kernels are being captured into a CUDA graph, or run as its warm-up."""
+    stack = getattr(_captures, "stack", None)
+    if stack is None:
+        stack = _captures.stack = []
+    tally = {}
+    stack.append(tally)
+    try:
+        yield tally
+    finally:
+        stack.pop()
+
+
+class CountedGraph:
+    """A captured graph (anything with `replay()`, a torch.cuda.CUDAGraph
+    on the card) with the kernel launches it holds, as `record_launches`
+    tallied them during its capture: each replay adds them to the
+    wrappers' counters."""
+
+    def __init__(self, graph, launches):
+        self.graph = graph
+        self.launches = dict(launches)
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for wrapper, n in self.launches.items():
+            wrapper.launches += n
+
+
 def rans_cdf_prepass(v: torch.Tensor, m: torch.Tensor, s: torch.Tensor,
                      lower: torch.Tensor) -> torch.Tensor:
     """Coding records of window-clamped bins v (int32), means and scales
@@ -138,12 +191,12 @@ def rans_cdf_prepass(v: torch.Tensor, m: torch.Tensor, s: torch.Tensor,
         rec.data_ptr(), v.numel(), _stream(),
     )
     _raise_if(err, "rans_cdf_prepass_kernel")
-    rans_cdf_prepass.launches += 1
+    _launched(rans_cdf_prepass)
     return rec
 
 
-# launch counts: each wrapper adds one where it launches its kernel, and
-# nowhere else
+# launch counts: each wrapper adds one where it launches its kernel (or to
+# the tally of a capture in progress), and nowhere else
 rans_cdf_prepass.launches = 0
 
 
@@ -187,7 +240,7 @@ def rans_encode(v: torch.Tensor, m: torch.Tensor, s: torch.Tensor,
         C, S, k, _stream(),
     )
     _raise_if(err, "rans_encode_kernel")
-    rans_encode.launches += 1
+    _launched(rans_encode)
     return words, flags, hi, lo
 
 
@@ -250,7 +303,7 @@ def rans_decode(buf: torch.Tensor, num_words, hi: torch.Tensor,
         threads, per, _stream(),
     )
     _raise_if(err, "rans_decode_kernel")
-    rans_decode.launches += 1
+    _launched(rans_decode)
     return vals, hi_out, lo_out
 
 

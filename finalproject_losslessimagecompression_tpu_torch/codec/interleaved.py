@@ -20,6 +20,11 @@ division, held by the tests against `_search` and exact integer division.
 
 `interleaved_encode_many` / `interleaved_decode_many` code several
 containers at once: those of one (S, k) go through one kernel launch.
+`EncodedStreams.padded` lays an unpacked container out at a length fixed
+by its plan and its escape slots, with its counts as values; `upload`
+sends containers to the device in that form, so a decode reads no host
+value and can be captured once per plan (models/exact.py's fused
+granularity).
 """
 
 from __future__ import annotations
@@ -47,7 +52,8 @@ class EncodedStreams:
     On the encode side every field is a tensor on the coding device, so an
     encode needs no host sync; container packing fetches them in one copy.
     On the unpacked side `words`, `state_hi` and `state_lo` are host numpy
-    arrays and the counts are ints."""
+    arrays and the counts are ints; `upload` puts them on the device in
+    the padded form (`padded`, `from_padded`), every count a 0-d tensor."""
 
     words: object  # [cap] int64, global emission buffer, (t, s) order
     num_words: object  # int or 0-d int64 tensor: words used (prefix)
@@ -64,38 +70,96 @@ class EncodedStreams:
     oow_idx: Optional[np.ndarray] = None  # [m] flat symbol indices
     oow_vals: Optional[np.ndarray] = None  # [m] int32 true bin values
     # bits-back: number of leading words donated as seeds to another
-    # container (absent from the packed payload; see models/exact.py)
-    donated: int = 0
+    # container (absent from the packed payload; see models/exact.py); an
+    # int, or a 0-d tensor in the padded form
+    donated: object = 0
 
-    def to(self, device) -> "EncodedStreams":
-        """The unpacked form with its arrays on `device`, in one copy.  On
-        the card the copy is from pinned memory and does not block the host,
-        so a decode pipeline can queue every container before its one sync."""
-        S, cap = self.num_streams, len(self.words)
-        m = 0 if self.oow_idx is None else len(self.oow_idx)
-        host = np.concatenate([
-            np.asarray(self.words, np.int64),
-            np.asarray(self.state_hi, np.int64),
-            np.asarray(self.state_lo, np.int64),
-            np.asarray([self.num_words], np.int64),
-            np.asarray(self.oow_idx if m else [], np.int64),
-            np.asarray(self.oow_vals if m else [], np.int64),
-        ])
-        flat = torch.from_numpy(host)
-        device = torch.device(device)
-        if device.type == "cuda":
-            flat = flat.pin_memory().to(device, non_blocking=True)
-        else:
-            flat = flat.to(device)
-        pos = cap + 2 * S + 1
-        return EncodedStreams(
+    def padded(self, max_outliers: int) -> np.ndarray:
+        """The unpacked form as one int64 host vector whose length depends
+        only on (n, S, max_outliers): the static input of a decode captured
+        once for all containers of that plan (`from_padded` reads it back).
+        Layout: words [k * S], hi [S], lo [S], num_words, donated,
+        oow_count, then the escapes' indices padded with n (a dump slot
+        past the last symbol) and their values padded with 0, each
+        [max_outliers].  Raises ValueError past max_outliers escapes."""
+        S = self.num_streams
+        cap = _plan_steps(self.n, S) * S
+        m = int(self.oow_count)
+        if m > max_outliers:
+            raise ValueError(f"{m} out-of-window escapes, at most "
+                             f"{max_outliers} fit the padded form")
+        if len(self.words) != cap:
+            raise ValueError(f"word buffer of {len(self.words)}, the plan's "
+                             f"capacity is {cap}")
+        out = np.zeros(padded_size(self.n, S, max_outliers), np.int64)
+        out[:cap] = self.words
+        out[cap : cap + S] = self.state_hi
+        out[cap + S : cap + 2 * S] = self.state_lo
+        out[cap + 2 * S : cap + 2 * S + 3] = (self.num_words, self.donated, m)
+        pos = cap + 2 * S + 3
+        out[pos : pos + max_outliers] = self.n
+        if m:
+            out[pos : pos + m] = self.oow_idx
+            out[pos + max_outliers : pos + max_outliers + m] = self.oow_vals
+        return out
+
+    @classmethod
+    def from_padded(cls, flat: torch.Tensor, n: int, S: int,
+                    max_outliers: int) -> "EncodedStreams":
+        """Views of a `padded` vector (on any device) as a container whose
+        counts are 0-d tensors, so that its decode reads no host value."""
+        cap = _plan_steps(n, S) * S
+        pos = cap + 2 * S + 3
+        return cls(
             words=flat[:cap], num_words=flat[cap + 2 * S],
             state_hi=flat[cap : cap + S], state_lo=flat[cap + S : cap + 2 * S],
-            n=self.n, num_streams=S, oow_count=self.oow_count,
-            oow_idx=flat[pos : pos + m] if m else None,
-            oow_vals=flat[pos + m : pos + 2 * m].to(torch.int32) if m else None,
-            donated=self.donated,
+            n=n, num_streams=S, oow_count=flat[cap + 2 * S + 2],
+            oow_idx=flat[pos : pos + max_outliers],
+            oow_vals=flat[pos + max_outliers : pos + 2 * max_outliers],
+            donated=flat[cap + 2 * S + 1],
         )
+
+
+def padded_size(n: int, S: int, max_outliers: int) -> int:
+    """Length of `EncodedStreams.padded`'s vector."""
+    return _plan_steps(n, S) * S + 2 * S + 3 + 2 * max_outliers
+
+
+def pad_many(encs, max_outliers: int = 0):
+    """Unpacked containers' padded forms, each with max(max_outliers, its
+    own escape count) escape slots, in one host int64 tensor, and their
+    layouts [(n, S, slots)] for `from_padded_many`."""
+    slots = [max(max_outliers, int(e.oow_count)) for e in encs]
+    host = torch.from_numpy(np.concatenate(
+        [e.padded(m) for e, m in zip(encs, slots)]))
+    return host, [(e.n, e.num_streams, m) for e, m in zip(encs, slots)]
+
+
+def from_padded_many(flat: torch.Tensor, layouts):
+    """The containers of a `pad_many` vector (on any device), as views."""
+    out, pos = [], 0
+    for n, S, m in layouts:
+        size = padded_size(n, S, m)
+        out.append(EncodedStreams.from_padded(flat[pos:pos + size], n, S, m))
+        pos += size
+    return out
+
+
+def to_device(host: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on `device`: on the card in one copy from pinned
+    memory that does not block the host, so that a decode can queue every
+    container before its one sync."""
+    device = torch.device(device)
+    if device.type == "cuda" and host.device.type == "cpu":
+        return host.pin_memory().to(device, non_blocking=True)
+    return host.to(device)
+
+
+def upload(encs, device, max_outliers: int = 0):
+    """Unpacked containers on `device` in their padded form, in one copy:
+    the one layout every decode of packed containers takes."""
+    host, layouts = pad_many(encs, max_outliers)
+    return from_padded_many(to_device(host, device), layouts)
 
 
 def _layout(arr: torch.Tensor, n: int, S: int, k: int, pad_const) -> torch.Tensor:
@@ -448,11 +512,22 @@ def decode_plain(buf, num_words, hi, lo, m, s, lower):
     return vals, hi, lo
 
 
+def fill_hole(buf: torch.Tensor, fill: torch.Tensor, donated) -> None:
+    """Bits-back hole restore, in place: a container omits its first
+    `donated` words, which are the final lo limbs `fill` of the streams
+    they seeded.  `donated` is an int or a 0-d tensor on buf's device, so
+    the restore needs no host value."""
+    take = min(fill.shape[0], buf.shape[0])
+    hole = torch.arange(take, device=buf.device) < donated
+    buf[:take] = torch.where(hole, fill[:take], buf[:take])
+
+
 def interleaved_decode_many(encs, means, scales, fills=None):
     """Decode several containers given the means/scales used at encode time
     (flat [n] each, encode order, on the coding device).  fills: per
     container, the final lo limbs that restore its bits-back hole (or
-    None).  Containers of the same (S, k) are decoded by one kernel launch.
+    None; `fill_hole`, so its donated count may be a device value).
+    Containers of the same (S, k) are decoded by one kernel launch.
     Returns a list of (values int32 [n], hi, lo); a successful decode
     returns every stream to 2^32 | seed."""
     from .cuda_rans import rans_decode
@@ -469,12 +544,7 @@ def interleaved_decode_many(encs, means, scales, fills=None):
         buf = col(lambda e: e.words)
         for c, i in enumerate(idx):
             if fills[i] is not None:
-                # bits-back hole restore: the container omitted its first
-                # `donated` words; they are the final lo limbs of the
-                # streams they seeded
-                take = min(int(fills[i].shape[0]), int(buf.shape[1]),
-                           int(encs[i].donated))
-                buf[c, :take] = fills[i][:take]
+                fill_hole(buf[c], fills[i], encs[i].donated)
         m = torch.stack([_layout(means[i].to(torch.float32), encs[i].n, S,
                                  k, PAD_MEAN) for i in idx])
         s = torch.stack([_layout(scales[i].to(torch.float32), encs[i].n, S,

@@ -20,21 +20,60 @@ FlowCodec sets `torch.backends.cudnn.deterministic = True`,
 `torch.backends.cudnn.allow_tf32 = False` and
 `torch.backends.cuda.matmul.allow_tf32 = False` for the process.
 
-Host syncs.  `compress_many` queues every level of every batch and then
-packs all containers with one device-to-host copy; `decompress_many` queues
-every decode (the containers go up through pinned, non-blocking copies) and
-checks every state invariant, plus the decoded images with fetch=True, in
-one device-to-host copy.
+Granularity.  `FlowCodec(model, num_streams, granularity)` takes the JAX
+package's three modes; None picks "fused" on a CUDA device and "level" on
+the CPU, as JAX picks "fused" on its accelerator.
+- "level" runs the level-major pipeline eagerly, op by op.
+- "nn" is accepted for JAX compatibility and is the level path (the codec
+  reads "level").  The JAX mode runs every coupling NN through one shared
+  executable so that both directions compute the same shifts; in eager
+  torch every shift of both directions already goes through the one
+  function `IDFlow.couple_t`.
+- "fused" runs the whole compress and the whole decompress of a queue as
+  one program each: `compress_pipeline` / `decompress_pipeline`, functions
+  of static-shaped device tensors (JAX `_compress_all` / `_decompress_all`).
+  On the card the first call of a queue signature (the batch sizes,
+  whether conds are given) runs the program eagerly, as "level" would; the
+  second captures it into a CUDA graph (after an eager warm-up:
+  `capture_seconds`) and replays it, and later calls replay.  So a one-off
+  queue, such as a one-shot CLI command, pays no capture, and a codec
+  keeps at most MAX_GRAPHS graphs, least recently used dropped first, in
+  one memory pool (`graph_pool`) whose freed blocks the next capture
+  reuses.  Before a replay the inputs are copied into the graph's static
+  inputs: the images, or a decompress queue's containers in one pinned
+  copy of their padded form (`interleaved.pad_many`: the bits-back hole,
+  the tail check and the escape patch read device values there, on every
+  path).  After it the outputs are cloned, so that a later replay never
+  overwrites what a caller holds.  A decompress queue with a container of
+  more than `MAX_OUTLIERS` escapes takes the level path, as in JAX, and is
+  counted in `level_fallbacks`.  On the CPU the fused pipeline runs
+  eagerly (there are no graphs); on the card a capture or replay that
+  fails raises.  A graph reads the parameters by address, so it follows
+  in-place updates (optimizer steps, `load_state_dict`); code that rebinds
+  a parameter tensor needs a new codec.  The containers are byte-identical
+  across the modes.
+
+Host syncs.  `compress_many` queues every level of every batch (or replays
+one graph) and then packs all containers with one device-to-host copy;
+`decompress_many` queues every decode (the containers go up through pinned,
+non-blocking copies) and checks every state invariant, plus the decoded
+images with fetch=True, in one device-to-host copy.
 
 Launches.  Both walk the queue level-major: at each level every batch's
 flow and prior run, then one rANS launch codes that level's containers of
 all batches (one per stream layout, should batch sizes differ), so a queue
-of any length launches each coding kernel once per level.  The containers
-are byte-identical to per-batch coding: the batches' streams never mix.
+of any length launches each coding kernel once per level.  A replayed
+graph holds exactly those launches and adds them to the wrappers' counters
+(`cuda_rans.CountedGraph`); its warm-up and capture count none.  The
+containers are byte-identical to per-batch coding: the batches' streams
+never mix.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import time
+from collections import OrderedDict
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -42,7 +81,15 @@ import torch
 
 from ..codec.coder import decode_streams_deferred_many, encode_tensors_deferred
 from ..codec.container import pack_streams_many, unpack_streams
-from ..codec.interleaved import make_seeds, pick_num_streams
+from ..codec.cuda_rans import CountedGraph, record_launches
+from ..codec.interleaved import (
+    EncodedStreams,
+    from_padded_many,
+    make_seeds,
+    pad_many,
+    pick_num_streams,
+    to_device,
+)
 from ..ops.reshape import depth_to_space, space_to_depth
 from .idflow import IDFlow, fold_batch, unfold_batch
 
@@ -55,10 +102,46 @@ def set_deterministic_cuda() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
+GRANULARITIES = ("fused", "level", "nn")
+
+
+def _remember(cache: OrderedDict, key, value, limit: int) -> None:
+    """Put key last in an LRU cache and drop the least recently used
+    entries past `limit` (a dropped graph's tensors go back to the pool)."""
+    cache[key] = value
+    cache.move_to_end(key)
+    while len(cache) > limit:
+        cache.popitem(last=False)
+
+
+def _cloned(out):
+    """A copy of a pipeline's outputs (tensors, EncodedStreams, lists and
+    tuples of them) that no later graph replay writes to."""
+    if isinstance(out, torch.Tensor):
+        return out.clone()
+    if isinstance(out, EncodedStreams):
+        return dataclasses.replace(out, **{
+            f.name: getattr(out, f.name).clone()
+            for f in dataclasses.fields(out)
+            if isinstance(getattr(out, f.name), torch.Tensor)})
+    if isinstance(out, (list, tuple)):
+        return type(out)(_cloned(o) for o in out)
+    return out
+
+
 class FlowCodec:
     """Lossless codec over an IDFlow.  It runs on the model's device; a
     container decodes only on the backend (CPU or card) that encoded it,
-    because the CDF's `exp` is not bit-equal across backends."""
+    because the CDF's `exp` is not bit-equal across backends.  See the
+    module docstring for `granularity`."""
+
+    # escapes per container that the fused decompress patches in the
+    # program; an instance may override it
+    MAX_OUTLIERS = 256
+    # graphs kept per codec (both directions), and signatures remembered
+    # as met once; the least recently used goes first
+    MAX_GRAPHS = 8
+    MAX_SEEN = 64
 
     # symbols per stream: level 0 is the only unseeded level (nothing is
     # decoded after it, so nothing can recover donated words from it) and
@@ -67,12 +150,28 @@ class FlowCodec:
     UNSEEDED_SYM_PER_STREAM = 256
     SEEDED_SYM_PER_STREAM = 64
 
-    def __init__(self, model: IDFlow, num_streams: int = 8192):
+    def __init__(self, model: IDFlow, num_streams: int = 8192,
+                 granularity: str | None = None):
         self.model = model
         self.cfg = model.cfg
         self.device = model.device
         self.num_streams = num_streams
         self.plans = model.plans
+        if granularity is None:
+            granularity = "fused" if self.device.type == "cuda" else "level"
+        if granularity not in GRANULARITIES:
+            raise ValueError(f"granularity {granularity!r}: one of "
+                             f"{GRANULARITIES} or None")
+        # "nn" is the level path here (module docstring)
+        self.granularity = "level" if granularity == "nn" else granularity
+        self.level_fallbacks = 0  # fused decompress queues decoded by level
+        self.graphs = self.device.type == "cuda"  # "fused" as CUDA graphs
+        self.captures = 0  # graphs captured
+        self.capture_seconds = 0.0  # warm-ups and captures of the graphs
+        self.graph_pool = None  # the graphs' memory pool, at first capture
+        self._seen = OrderedDict()  # signatures met once, not captured
+        # signature -> (graph, static inputs, outputs), least recent first
+        self._graphs = OrderedDict()
         if self.device.type == "cuda":
             set_deterministic_cuda()
 
@@ -85,30 +184,40 @@ class FlowCodec:
             return self.UNSEEDED_SYM_PER_STREAM
         return self.SEEDED_SYM_PER_STREAM
 
-    def _level_S(self, level: int, fold: int) -> int:
+    def _level_n(self, level: int, fold: int) -> int:
         p = self.plans[level]
-        return pick_num_streams(fold * p.z_ch * p.h * p.w, self.num_streams,
+        return fold * p.z_ch * p.h * p.w
+
+    def _level_S(self, level: int, fold: int) -> int:
+        return pick_num_streams(self._level_n(level, fold), self.num_streams,
                                 self._level_sps(level))
 
     # ------------------------------------------------------------------
-    # compress
+    # the pipelines (functions of device tensors, no host value read)
     # ------------------------------------------------------------------
+
+    def _conds_on_device(self, conds, n: int):
+        """A conditional flow's conds, one per batch, as float32 tensors on
+        the codec's device (None for an unconditional flow)."""
+        if not self.cfg.conditional:
+            return None
+        if conds is None or len(conds) != n:
+            raise ValueError("a conditional flow needs one cond per batch")
+        return [torch.as_tensor(c, dtype=torch.float32, device=self.device)
+                for c in conds]
 
     def _features(self, conds, n: int):
         """Per batch, the per-level conditioning features (None for an
         unconditional flow)."""
         if not self.cfg.conditional:
             return [self.model._conds(None)] * n
-        if conds is None or len(conds) != n:
-            raise ValueError("a conditional flow needs one cond per batch")
-        return [self.model._conds(torch.as_tensor(
-            c, dtype=torch.float32, device=self.device)) for c in conds]
+        return [self.model._conds(c) for c in conds]
 
     @torch.no_grad()
-    def _compress_deferred_many(self, xs, conds=None):
-        """Queue the whole encode of a queue of batches without a host
-        sync, level-major; returns [(per-level EncodedStreams, info)] per
-        batch.
+    def compress_pipeline(self, xs, conds=None):
+        """The whole encode of a queue of batches (float32 tensors on the
+        device; conds likewise, or None), level-major, without a host
+        sync: per batch, its per-level EncodedStreams.
 
         Bits-back chain: level l + 1's streams are seeded from level l's
         word buffer, and level l's container omits those donated words.
@@ -116,12 +225,9 @@ class FlowCodec:
         buffer it has decoded level l + 1 and holds the donated words as
         that decode's final lo limbs."""
         cfg, model = self.cfg, self.model
-        xs = [torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        folds = [1 if cfg.batch_squeeze else int(x.shape[0]) for x in xs]
+        xs = [fold_batch(x, cfg.batch_squeeze) if cfg.batch_squeeze else x
               for x in xs]
-        infos = [{"batch": int(x.shape[0])} for x in xs]
-        folds = [1 if cfg.batch_squeeze else info["batch"] for info in infos]
-        if cfg.batch_squeeze:
-            xs = [fold_batch(x, cfg.batch_squeeze) for x in xs]
         feats = self._features(conds, len(xs))
         encs: List[List] = [[] for _ in xs]
         seeds = [None] * len(xs)
@@ -148,59 +254,20 @@ class FlowCodec:
                     seeds[b] = make_seeds(enc.words, enc.num_words, S_next)
                     # clamped to the word count at pack time
                     enc.donated = S_next
-        return list(zip(encs, infos))
-
-    def compress(self, x, cond=None) -> Tuple[List[bytes], dict]:
-        """Encode an image batch (NHWC, values on the 1/256 grid) to
-        per-level containers.  Returns (blobs, info)."""
-        return self.compress_many([x], None if cond is None else [cond])[0]
-
-    def compress_many(self, xs, conds=None):
-        """Serving encode: queue every batch, then pack every container with
-        one host sync.  Returns a list of (blobs, info)."""
-        per_batch = self._compress_deferred_many(xs, conds)
-        blobs = pack_streams_many([e for encs, _ in per_batch for e in encs])
-        out, pos = [], 0
-        for encs, info in per_batch:
-            out.append((blobs[pos : pos + len(encs)], info))
-            pos += len(encs)
-        return out
-
-    # ------------------------------------------------------------------
-    # decompress
-    # ------------------------------------------------------------------
-
-    def _unpack_checked(self, blobs: Sequence[bytes], fold: int):
-        """Unpack and validate the containers against the level plans."""
-        if len(blobs) != self.cfg.nsplit:
-            raise ValueError(f"expected {self.cfg.nsplit} containers, "
-                             f"got {len(blobs)}")
-        encs = [unpack_streams(b) for b in blobs]
-        for level, e in enumerate(encs):
-            p = self.plans[level]
-            want_n = fold * p.z_ch * p.h * p.w
-            want_S = self._level_S(level, fold)
-            if e.n != want_n or e.num_streams != want_S:
-                raise ValueError(
-                    f"container level {level}: symbol count/streams "
-                    f"({e.n}, {e.num_streams}) do not match the model "
-                    f"plan ({want_n}, {want_S})"
-                )
-        return [e.to(self.device) for e in encs]
+        return encs
 
     @torch.no_grad()
-    def _decompress_deferred_many(self, packed, conds=None):
-        """Queue the whole decode of [(blobs, info), ...], level-major;
-        returns (xs, oks) with oks the per-level state-invariant flags,
-        still on the device."""
+    def decompress_pipeline(self, encs, batches, conds=None):
+        """The whole decode of a queue, level-major, without a host sync:
+        encs[b] is batch b's per-level containers in their padded form on
+        the device (`interleaved.upload`: every count a device value),
+        batches[b] its batch size.  Returns (xs, oks)
+        with oks the per-level state-invariant flags, on the device."""
         cfg, model = self.cfg, self.model
-        batches = [info["batch"] for _, info in packed]
         folds = [1 if cfg.batch_squeeze else b for b in batches]
-        encs = [self._unpack_checked(blobs, fold)
-                for (blobs, _), fold in zip(packed, folds)]
-        feats = self._features(conds, len(packed))
-        xs = [None] * len(packed)
-        prev_lo = [None] * len(packed)
+        feats = self._features(conds, len(encs))
+        xs = [None] * len(encs)
+        prev_lo = [None] * len(encs)
         oks = []
         for level in range(cfg.nsplit - 1, -1, -1):
             p = self.plans[level]
@@ -232,6 +299,158 @@ class FlowCodec:
             xs = [unfold_batch(x, cfg.C)[:batch]
                   for x, batch in zip(xs, batches)]
         return xs, oks
+
+    # ------------------------------------------------------------------
+    # the fused mode's graphs
+    # ------------------------------------------------------------------
+
+    def _fused(self, key, args, pipeline):
+        """pipeline(*args), args being lists of tensors (or None).  On the
+        CPU (`graphs` false) it runs eagerly.  On the card the first call
+        of a queue signature `key` runs it eagerly too; the second
+        captures it as a CUDA graph over static copies of the args and
+        replays it, and every later call fills the static inputs with its
+        own values and replays.  The graphs are kept least recently used
+        first, at most MAX_GRAPHS of them; a replay's outputs are cloned."""
+        if not self.graphs:
+            return pipeline(*args)
+        entry = self._graphs.get(key)
+        if entry is None and key not in self._seen:
+            _remember(self._seen, key, None, self.MAX_SEEN)
+            return pipeline(*[None if a is None else [
+                to_device(t, self.device) for t in a] for a in args])
+        if entry is None:
+            del self._seen[key]
+            inputs = [None if a is None else [
+                torch.empty(t.shape, dtype=t.dtype, device=self.device)
+                for t in a] for a in args]
+            self._fill(inputs, args)
+            graph, outputs = self._capture(lambda: pipeline(*inputs))
+            entry = (graph, inputs, outputs)
+            _remember(self._graphs, key, entry, self.MAX_GRAPHS)
+        else:
+            self._graphs.move_to_end(key)
+            self._fill(entry[1], args)
+        graph, _, outputs = entry
+        graph.replay()
+        return _cloned(outputs)
+
+    def _capture(self, run):
+        """(CountedGraph, outputs) of `run()` captured on the codec's
+        device.  A warm-up on a side stream first builds what capture may
+        not (the kernels' library, cuDNN plans, cuBLAS handles); neither
+        counts a launch."""
+        t0 = time.perf_counter()
+        with torch.cuda.device(self.device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side), record_launches():
+                run()
+            torch.cuda.current_stream().wait_stream(side)
+            if self.graph_pool is None:
+                self.graph_pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            with record_launches() as tally:
+                with torch.cuda.graph(graph, pool=self.graph_pool):
+                    outputs = run()
+        self.capture_seconds += time.perf_counter() - t0
+        self.captures += 1
+        return CountedGraph(graph, tally), outputs
+
+    @staticmethod
+    def _fill(static, args) -> None:
+        """Copy each arg's tensors into the static inputs (host tensors
+        to the card from pinned memory, without blocking the host)."""
+        for dsts, srcs in zip(static, args):
+            for dst, src in zip(dsts or (), srcs or ()):
+                if dst.device.type == "cuda" and src.device.type == "cpu":
+                    src = src.pin_memory()
+                dst.copy_(src, non_blocking=True)
+
+    # ------------------------------------------------------------------
+    # compress
+    # ------------------------------------------------------------------
+
+    def _compress_deferred_many(self, xs, conds=None):
+        """Queue the whole encode of a queue of batches without a host
+        sync; returns [(per-level EncodedStreams, info)] per batch."""
+        xs = [torch.as_tensor(x, dtype=torch.float32, device=self.device)
+              for x in xs]
+        conds = self._conds_on_device(conds, len(xs))
+        if self.granularity == "fused":
+            key = ("compress", tuple(int(x.shape[0]) for x in xs),
+                   conds is not None)
+            encs = self._fused(key, (xs, conds), self.compress_pipeline)
+        else:
+            encs = self.compress_pipeline(xs, conds)
+        return [(e, {"batch": int(x.shape[0])}) for e, x in zip(encs, xs)]
+
+    def compress(self, x, cond=None) -> Tuple[List[bytes], dict]:
+        """Encode an image batch (NHWC, values on the 1/256 grid) to
+        per-level containers.  Returns (blobs, info)."""
+        return self.compress_many([x], None if cond is None else [cond])[0]
+
+    def compress_many(self, xs, conds=None):
+        """Serving encode: queue every batch, then pack every container with
+        one host sync.  Returns a list of (blobs, info)."""
+        per_batch = self._compress_deferred_many(xs, conds)
+        blobs = pack_streams_many([e for encs, _ in per_batch for e in encs])
+        out, pos = [], 0
+        for encs, info in per_batch:
+            out.append((blobs[pos : pos + len(encs)], info))
+            pos += len(encs)
+        return out
+
+    # ------------------------------------------------------------------
+    # decompress
+    # ------------------------------------------------------------------
+
+    def _unpack_checked(self, blobs: Sequence[bytes], fold: int):
+        """Unpack and validate the containers against the level plans
+        (host arrays)."""
+        if len(blobs) != self.cfg.nsplit:
+            raise ValueError(f"expected {self.cfg.nsplit} containers, "
+                             f"got {len(blobs)}")
+        encs = [unpack_streams(b) for b in blobs]
+        for level, e in enumerate(encs):
+            want_n = self._level_n(level, fold)
+            want_S = self._level_S(level, fold)
+            if e.n != want_n or e.num_streams != want_S:
+                raise ValueError(
+                    f"container level {level}: symbol count/streams "
+                    f"({e.n}, {e.num_streams}) do not match the model "
+                    f"plan ({want_n}, {want_S})"
+                )
+        return encs
+
+    def _decompress_deferred_many(self, packed, conds=None):
+        """Queue the whole decode of [(blobs, info), ...]; returns (xs, oks)
+        with oks the per-level state-invariant flags, still on the
+        device."""
+        batches = [info["batch"] for _, info in packed]
+        folds = [1 if self.cfg.batch_squeeze else b for b in batches]
+        encs = [self._unpack_checked(blobs, fold)
+                for (blobs, _), fold in zip(packed, folds)]
+        conds = self._conds_on_device(conds, len(packed))
+        # one layout for every path: the containers' padded forms, escapes
+        # padded to MAX_OUTLIERS (or to a container's own count past it)
+        host, layouts = pad_many([e for es in encs for e in es],
+                                 self.MAX_OUTLIERS)
+        nl = self.cfg.nsplit
+
+        def pipeline(flat, sconds):
+            views = from_padded_many(flat[0], layouts)
+            return self.decompress_pipeline(
+                [views[b * nl:(b + 1) * nl] for b in range(len(batches))],
+                batches, sconds)
+
+        if self.granularity == "fused":
+            if all(m == self.MAX_OUTLIERS for _, _, m in layouts):
+                key = ("decompress", tuple(batches), conds is not None,
+                       self.MAX_OUTLIERS)
+                return self._fused(key, ([host], conds), pipeline)
+            self.level_fallbacks += 1
+        return pipeline([to_device(host, self.device)], conds)
 
     @staticmethod
     def _check_got(got) -> None:

@@ -14,6 +14,10 @@ deterministic float32 arithmetic (`exact.set_deterministic_cuda`), so both
 ends condition the flow's priors on the same bits.  x - rec and res + rec
 are exact in float32 on the 1/256 grid.
 
+The flow part of a queue goes to the FlowCodec whole, so under its
+default granularity on the card ("fused") it is one CUDA graph replay
+each way; the VQ encode and the reconstruction run eagerly.
+
 Index stream cost: ceil(log2(K)) bits per index, counted in coded_bits and
 real_bpd.
 """

@@ -48,13 +48,18 @@ def _coded_dim(padded: int, rough: int, tile: int) -> int:
 
 
 class TwoLevelCodec:
-    def __init__(self, model: TwoLevelFlow, num_streams: int = 4096):
+    """`granularity` goes to both sub-flows' FlowCodecs; its default is
+    JAX's, "level": the fine flow's deterministic cuDNN FFT convolutions
+    run under CUDA graph capture only when a caller asks for "fused"."""
+
+    def __init__(self, model: TwoLevelFlow, num_streams: int = 4096,
+                 granularity: str | None = "level"):
         cfg = model.cfg
         self.cfg = cfg
         self.model = model
         self.device = model.device
-        self.rough_codec = FlowCodec(model.rough, num_streams)
-        self.fine_codec = FlowCodec(model.fine, num_streams)
+        self.rough_codec = FlowCodec(model.rough, num_streams, granularity)
+        self.fine_codec = FlowCodec(model.fine, num_streams, granularity)
         if cfg.Hp % cfg.rough.H or cfg.Wp % cfg.rough.W:
             self.Hc = _coded_dim(cfg.Hp, cfg.rough.H, cfg.fine.H)
             self.Wc = _coded_dim(cfg.Wp, cfg.rough.W, cfg.fine.W)

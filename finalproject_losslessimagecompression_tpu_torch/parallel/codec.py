@@ -18,6 +18,7 @@ import torch
 
 from ..codec.coder import decode_streams_deferred, encode_tensor
 from ..codec.container import unpack_streams
+from ..codec.interleaved import upload
 from .mesh import Mesh
 from .sharding import shard_batch
 
@@ -74,7 +75,7 @@ def sharded_decode(blobs: Sequence[bytes], means, logscales, mesh: Mesh):
 
     def decode():
         x, ok, _ = decode_streams_deferred(
-            unpack_streams(blobs[mesh.rank]).to(mesh.device), m, ls)
+            upload([unpack_streams(blobs[mesh.rank])], mesh.device)[0], m, ls)
         return x, [ok]
 
     return gather_checked(mesh, decode).reshape(tuple(means.shape))

@@ -9,11 +9,14 @@ alone on one device.
 
 The per-rank work is literally `FlowCodec.compress` / `decompress` of the
 local shard (on the card: the rANS kernels, one launch per level each
-way), with one collective each way: the containers reach every rank with
-one all_gather of objects, the decoded shards with one all_gather.  No
-coder semantics fork.  Unlike the JAX class, decompress does not refuse
-a container with many out-of-window escapes: the port's FlowCodec has no
-`MAX_OUTLIERS` limit, so any container it wrote decodes here too.
+way, replayed as CUDA graphs under the default "fused" granularity),
+with one collective each way: the containers reach every rank with one
+all_gather of objects, the decoded shards with one all_gather.  No coder
+semantics fork.  Unlike the JAX class, decompress does not refuse a shard
+with more than `FlowCodec.MAX_OUTLIERS` out-of-window escapes in a
+container: the rank's FlowCodec decodes that queue through its level path
+(counted in its `level_fallbacks`), so any container it wrote decodes here
+too.
 """
 
 from __future__ import annotations
