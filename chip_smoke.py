@@ -59,14 +59,28 @@ Phases, each printing one JSON line:
             configs/imagenet64.yaml's model (the flagship IDFlow, batch 16,
             steps_per_dispatch 4, Adamax 1e-3 with WarmUp 10 / 0.99), its
             two dataloaders overridden to NaturalSynthetic 64x64x3 (no
-            ImageNet64 in the repository), 8 steps, eval with real rANS
-            coding of one batch at step 8, checkpoint and resume.  Step
-            time, images/s, FLOPs per step (FlopCounterMode), MFU against
-            the H100's float32 peak, peak memory, bpd on one fixed batch
-            before and after, the eval's coded bpd and errors, the rANS
-            launches of that eval, and whether a trainer resumed from the
-            checkpoint holds the same params, optimizer state and step.
-            Then `train_profile`: torch.profiler over one more K-step block.
+            ImageNet64 in the repository), epochs of 8 steps, 12 steps as
+            three K-step blocks of the captured K-step graph (the first
+            block eager, the second captured and replayed, the third
+            replayed: the learning rate changes between them), eval with
+            real rANS coding of one batch at step 8, checkpoint
+            and resume.  FLOPs per step (FlopCounterMode), peak memory, bpd
+            on one fixed batch before and after, the evals' coded bpd and
+            errors, the rANS launches of each eval, whether a trainer
+            resumed from the checkpoint holds the same params, optimizer
+            state and step.  Then `against_eager`: two trainers built from
+            the same config run the same 12 steps through the K-step
+            step's eager body; the two eager runs against each other (the
+            spread) and the captured trainer against them (params,
+            optimizer moments and step counters, update count: bit for
+            bit, or within the spread), the learning rates each replay
+            read (different across replays, the schedule's), then two
+            replayed blocks against two eager ones: step time, images/s,
+            MFU against the H100's float32 peak and, from torch.profiler
+            over one block of each, the device's busy time and idle share;
+            captures, capture seconds and the graph pool's bytes.  Phases
+            8, 9, 11 and 14 and the one NCCL rank of phase 17 run their
+            trainers captured the same way.
 6. cli      the file codec CLI's serve session (`cli.codec`) on
             configs/imagenet64.yaml's model at full width, from a checkpoint
             of seeded weights with perturbed projections that the phase
@@ -111,16 +125,22 @@ Phases, each printing one JSON line:
 8. vqvae_train  configs/vqvae_for_imagenet64_reinit.yaml at full width
             through cli.train (VQ-VAE 8192 x 512, hidden dims 128/256/512,
             8 ResBlocks, Binomial, Adam 1e-4, batch 32) on NaturalSynthetic
-            64x64x3: 6 steps with the dead-code reinit's interval cut to 2
-            so that it fires, eval of one batch, checkpoint and resume.
-            Step time, images/s, peak memory, codewords replaced.
+            64x64x3: 6 captured steps (update, usage counts and dead-code
+            reinit in one graph; the reinit's interval cut to 2 so that it
+            fires) over epochs of 4 steps, eval of one batch, checkpoint
+            and resume, `against_eager` (counts, codebook, replaced count
+            and the BatchNorm running averages included).  Step time,
+            images/s, MFU, peak memory, codewords replaced.
 9. residual_train  configs/resflow-cond-imagenet64.yaml at full width
             through cli.train, its VQ-VAE the checkpoint phase 8 wrote,
-            projections perturbed: 4 steps at batch 4, eval of one batch
-            coded for real through ResidualCodec (0 errors, one launch of
-            each kernel per level), MFU, peak memory, resume; then
-            cli.make_res_data on two batches (residual + reconstruction
-            is the data exactly, the reconstruction on the 1/256 grid).
+            projections perturbed: 6 captured steps at batch 4, each on 2
+            of the batch's 4 patches drawn by the trainer's generator
+            outside the graph, epochs of 4 steps, eval of one batch coded
+            for real through ResidualCodec at step 4 (0 errors, one
+            launch of each kernel per level each), MFU, peak memory,
+            resume, `against_eager` (the generator's state included); then
+            cli.make_res_data on two batches (residual + reconstruction is
+            the data exactly, the reconstruction on the 1/256 grid).
 10. twolevel configs/config_twolevel.yaml's model at full width (215x178
             padded to 216x184, rough flow 27x23, fine flow over 621 8x8
             tiles per image, DenseBlocks growth 512 depth 8, nflows 12),
@@ -128,9 +148,12 @@ Phases, each printing one JSON line:
             compress_many / decompress_many(fetch=True) on a queue of 2
             batches of 4 NaturalSynthetic images, bit-exact, one launch of
             each kernel per sub-flow; then `twolevel_profile`.
-11. twolevel_train  the same config through cli.train at batch 4: 3 steps,
-            eval of one batch coded through TwoLevelCodec (0 errors),
-            FLOPs, MFU, peak memory, samples at four temperatures, resume.
+11. twolevel_train  the same config through cli.train at batch 4: 6
+            captured steps (the fine flow's recomputation in the graph's
+            backward) over epochs of 4 steps, eval of one batch coded
+            through TwoLevelCodec at step 4 (0 errors), FLOPs, MFU,
+            peak memory, samples at four temperatures, resume,
+            `against_eager`.
 12. twolevel_cli  phase 10's model through the file CLI: two 215x178 files
             and a 300x200 one (4 tiles, one chunk) compressed in a serve
             session and decompressed by the CLI in a process of its own
@@ -149,14 +172,17 @@ Phases, each printing one JSON line:
             timed, bit-exact.
 14. finetune  configs/config-trans-test.yaml at full width through
             cli.train (the Finetuner: 64x48x3, nflows 8, nsplit 3,
-            DenseBlocks 512 x 12, batch 16, Adam at fine_tune_lr 1e-3), its
+            DenseBlocks 512 x 12, batch 16, the config's Adamax 1e-3 with
+            WarmUp 10 / 0.99 over epochs of 4 steps in place of the
+            constant fine_tune_lr, so the learning rate changes), its
             load_path a checkpoint of phase 4's seeded weights (a flow's
             weights do not depend on H, W), both loaders on
-            NaturalSynthetic 64x48: 8 tuning steps saving every 4 (the
-            model bit-identical after them, the tuner nonzero), a resume
-            that restores tuner, Adam state and step, then 3 steps with
-            fine_tune off (tuner zero, no checkpoint).  Step time,
-            images/s, FLOPs (input gradients only), MFU, peak memory, bpd.
+            NaturalSynthetic 64x48: 8 captured tuning steps saving every 4
+            (the model bit-identical after them, the tuner nonzero), a
+            resume that restores tuner, optimizer state and step,
+            `against_eager`, then 3 steps with fine_tune off (tuner zero,
+            no checkpoint).  Step time, images/s, FLOPs (input gradients
+            only), MFU, peak memory, bpd.
 15. visualize  cli.visualize on configs/vis_config_imagenet64.yaml at full
             width (the flagship 64x64 flow, the same checkpoint): grids of
             16 samples at temperatures 0.25-1.0, each held to the identity
@@ -179,8 +205,9 @@ Phases, each printing one JSON line:
             the host).  (a) one NCCL rank: ShardedFlowCodec on the
             flagship at batch 16, its 3 containers byte-identical to
             FlowCodec.compress of the batch, bit-exact, 3 launches each
-            way; one sharded train step of configs/imagenet64.yaml's
-            model equal to the plain step bit for bit.  (b) two gloo
+            way; three sharded train steps of configs/imagenet64.yaml's
+            model, captured (eager, capture, replay), equal to three plain
+            eager steps bit for bit.  (b) two gloo
             ranks on the card: ShardedFlowCodec (flagship, 32 images),
             ShardedResidualCodec (resflow-cond-imagenet64, 16 images),
             ShardedTwoLevelCodec (config_twolevel, 4 images), each rank's
@@ -209,6 +236,7 @@ phases 1-3 only.
 """
 
 import contextlib
+import copy
 import importlib.util
 import io
 import json
@@ -867,11 +895,11 @@ def kernel_times(prof):
 
 def graph_pool_bytes(codec) -> int:
     """Bytes of the memory segments of a FlowCodec's graph pool."""
-    if codec.graph_pool is None:
-        return 0
-    pool = tuple(codec.graph_pool)
-    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-               if tuple(seg.get("segment_pool_id", ())) == pool)
+    from finalproject_losslessimagecompression_tpu_torch.utils.graphs import (
+        pool_bytes,
+    )
+
+    return pool_bytes(codec.graph_pool)
 
 
 def graph_stats(codecs):
@@ -1159,8 +1187,14 @@ def fill_caches(t):
             ds[i]  # noqa: B018 (fills the cache)
 
 
-def phase_train(wrappers):
+def phase_train(wrappers, blocks: int = 3):
+    """Phase 5: the flow trainer's loop at full width, captured by default
+    (the first K-step block eager, the second captured, then replays), with
+    the learning rate changing between blocks 2 and 3; eval with coding at
+    the epoch boundary, checkpoint and resume; then the captured trainer
+    against two eager twins (`against_eager`)."""
     from finalproject_losslessimagecompression_tpu_torch.cli.train import (
+        apply_overrides,
         build_trainer,
     )
     from finalproject_losslessimagecompression_tpu_torch.train.trainer import (
@@ -1172,16 +1206,26 @@ def phase_train(wrappers):
 
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     config = train_config()
+    K = config["train"]["steps_per_dispatch"]
+    steps = blocks * K
+    # an epoch of two blocks: the learning rate changes between the
+    # capturing block and the next replay; eval (with coding) runs once,
+    # at the epoch boundary
+    apply_overrides(config, [
+        f"train.max_step={steps}", f"train.evaluate_interval={2 * K}",
+        f"train.save_interval={steps}", f"train.step_per_epoch={2 * K}"])
     t = build_trainer(config)
-    cfg, K, batch = t.cfg, t.steps_per_dispatch, t.trainloader.batch_size
+    cfg, batch = t.cfg, t.trainloader.batch_size
+    assert t.graphs and t.train_multi is not None
     fill_caches(t)
     fixed = t._to_device(next(iter(t.testloader)))
     bpd_before = float(t.eval_step(fixed)[0]) / LN2
+    lrs = record_lrs(t.optimizer)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for w in wrappers.values():
         w.launches = 0
-    t.train()  # 2 blocks of K steps, then eval (with coding) and save
+    t.train()  # `blocks` blocks of K steps, eval (with coding), save
     torch.cuda.synchronize()
     launches = {name: w.launches for name, w in wrappers.items()}
     peak_mem_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1191,67 +1235,199 @@ def phase_train(wrappers):
     assert len(losses) == t.max_step and all(map(math.isfinite, losses)), \
         losses
     assert bpd_after < bpd_before, (bpd_before, bpd_after)
-    ev = {tag: logged(tag)[-1][1]
-          for tag in ("test bpd", "real bpd", "coding errors")}
-    assert ev["coding errors"] == 0, ev
-    # training launches no rANS kernel; the eval codes one batch, one
+    errors = [v for _, v in logged("coding errors")]
+    ev = {tag: logged(tag)[-1][1] for tag in ("test bpd", "real bpd")}
+    assert errors and all(e == 0 for e in errors), errors
+    # training launches no rANS kernel; each eval codes one batch, one
     # launch of each kernel per level
-    eval_batches = 1
-    assert all(v == cfg.nsplit * eval_batches for v in launches.values()), \
+    assert all(v == cfg.nsplit * len(errors) for v in launches.values()), \
         launches
-    # step time: blocks after the first, each ended by the loss fetch
-    step_s = statistics.median(v for _, v in logged("step time s"))
+    step = t.train_multi
+    assert (step.captures, step.replays) == (1, blocks - 1), \
+        (step.captures, step.replays)
     flops = logged("flops per step")[0][1]
     peak, peak_name = device_peak_tflops("cuda", cfg.couple.nn.dtype)
-    achieved = flops / step_s / 1e12
-    config["train"]["model"]["load_path"] = t.save_path
-    resumed = build_trainer(config)
+    resumed = build_trainer(apply_overrides(
+        copy.deepcopy(config), [f"train.model.load_path={t.save_path}"]))
     resume_equal = same_state(t, resumed)
     assert resume_equal, "a resumed trainer differs from the saved one"
     del resumed
+    rep = against_eager(
+        "train", t, step, lambda: build_trainer(config), blocks,
+        lambda tw: tw.train_multi.eager(tw.next_block(K)),
+        lambda: t.train_block(t.next_block(K)), lrs, K, batch * K, flops)
     res = {"phase": "train", "config": TRAIN_CONFIG, "batch": batch, "K": K,
-           "steps": t.step, "step_s": step_s,
-           "train_images_per_s": batch / step_s,
-           "flops_per_step": flops, "achieved_tflops": achieved,
-           "mfu_pct": 100.0 * achieved / peak if peak else None,
-           "mfu_peak_tflops": peak, "mfu_peak": peak_name,
-           "peak_mem_gb": peak_mem_gb, "losses": losses,
-           "bpd_before": bpd_before, "bpd_after": bpd_after,
-           "test_bpd": ev["test bpd"], "real_bpd": ev["real bpd"],
-           "coding_errors": int(ev["coding errors"]),
-           "eval_batches": eval_batches, "launches_eval": launches,
-           "resume_equal": resume_equal}
+           "steps": t.step, "step_s": rep["step_s"],
+           "train_images_per_s": batch / rep["step_s"],
+           "flops_per_step": flops, "mfu_peak_tflops": peak,
+           "mfu_peak": peak_name, "peak_mem_gb": peak_mem_gb,
+           "losses": losses, "bpd_before": bpd_before,
+           "bpd_after": bpd_after, "test_bpd": ev["test bpd"],
+           "real_bpd": ev["real bpd"], "coding_errors": int(sum(errors)),
+           "eval_batches": len(errors),
+           "launches_eval": {k: v // len(errors)
+                             for k, v in launches.items()},
+           "resume_equal": resume_equal, **rep}
     emit(res)
-    train_profile(t, step_s)
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     return res
 
 
-def train_profile(t, unprofiled_step_s: float, top: int = 12):
-    """torch.profiler over one K-step block of the trainer: device busy and
-    idle share of the block's wall, and the top kernels by device time."""
+# ---------------------------------------------------------------------------
+# captured train steps against their eager bodies
+# ---------------------------------------------------------------------------
+
+
+def record_lrs(opt):
+    """Record, at every call of a step of `opt` (a train.optim.Optimizer),
+    the learning rates the step is about to read from its static tensor
+    (read back after the copy that writes them)."""
+    seen = []
+    real = opt.next_lrs
+
+    def next_lrs(K):
+        lrs = real(K)
+        seen.append((opt.count, lrs.tolist()))
+        return lrs
+
+    opt.next_lrs = next_lrs
+    return seen
+
+
+def train_state(t):
+    """Every piece of a trainer's training state by name: the model's
+    parameters and buffers (BatchNorm running averages, the codebook), the
+    optimizer's moments and step counters and its update count, and where
+    the trainer has them the VQ usage counts, the replaced-codeword count,
+    the tuner and the patch draw's generator state."""
+    opt = getattr(t, "tuner_opt", None) or t.optimizer
+    sd = opt.state_dict()
+    out = {f"model.{k}": v for k, v in t.model.state_dict().items()}
+    out["opt.count"] = torch.tensor(sd["count"])
+    out.update({f"opt.{i}.{k}": v for i, st in sd["state"].items()
+                for k, v in st.items()})
+    for name in ("counts", "replaced", "tuner"):
+        if hasattr(t, name):
+            out[name] = getattr(t, name).detach()
+    if hasattr(t, "gen"):
+        out["gen"] = t.gen.get_state()
+    return out
+
+
+def state_diff(a, b):
+    """(the entries of two train_states that are not torch.equal, the
+    largest absolute difference over them; 0.0 where every entry is)."""
+    names, worst = [], 0.0
+    for k, x in a.items():
+        y = b[k]
+        if x.device == y.device and torch.equal(x, y):
+            continue
+        names.append(k)
+        worst = max(worst, float((x.double().cpu() - y.double().cpu())
+                                 .abs().max()))
+    return names, worst
+
+
+def call_seconds(run, reps: int) -> float:
+    """Host seconds per call of run(), over `reps` calls fenced with
+    synchronize on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        run()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps
+
+
+def profile_step(run, label: str, unprofiled_s: float, top: int = 8):
+    """torch.profiler over one call of run(): device busy seconds and idle
+    share of its wall (and of the unprofiled call's), kernel launches, the
+    top kernels (kernels only, user annotations excluded)."""
     from torch.profiler import ProfilerActivity, profile
 
-    batches = t.next_block(t.steps_per_dispatch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        losses, _ = t.train_block(batches)
-        losses.cpu()
+        run()
         torch.cuda.synchronize()
         wall = time.time() - t0
     kernels = kernel_times(prof)
-    busy_us = sum(us for _, us, _ in kernels)
-    K = t.steps_per_dispatch
-    emit({"phase": "train_profile", "K": K, "wall_s": wall,
-          "step_s": wall / K, "device_busy_s": busy_us / 1e6,
-          "device_idle_share": 1.0 - busy_us / 1e6 / wall,
-          "device_idle_share_unprofiled": 1.0 - busy_us / 1e6 / K
-          / unprofiled_step_s,
-          "kernel_launches": sum(n for _, _, n in kernels),
-          "top": [{"name": name[:80], "device_ms": us / 1e3, "calls": n}
-                  for name, us, n in kernels[:top]]})
+    busy_s = sum(us for _, us, _ in kernels) / 1e6
+    assert busy_s > 0, f"{label}: the profiler recorded no device time"
+    return {"profile": label, "wall_s": wall, "device_busy_s": busy_s,
+            "device_idle_share": 1.0 - busy_s / wall,
+            "device_idle_share_unprofiled": 1.0 - busy_s / unprofiled_s,
+            "kernel_launches": sum(n for _, _, n in kernels),
+            "top": [{"name": name[:80], "device_ms": us / 1e3, "calls": n}
+                    for name, us, n in kernels[:top]]}
+
+
+def against_eager(label, t, step, build, calls, drive_eager,
+                  drive_captured, lrs, updates, images, flops,
+                  reps: int = 2):
+    """A trainer `t` that ran `calls` calls of its captured step `step`
+    (the first eager, the second capturing, then replays) held against two
+    trainers `build()` makes from its config (the same seed, weights and
+    loader), each running the same calls through the step's eager body
+    (`drive_eager(twin)`).  First the two eager twins against each other
+    (the eager-to-eager spread: 0.0 when every state entry is
+    torch.equal), then `t` against the first twin: equal bit for bit, or
+    within the spread on the entries the spread covers.  `lrs` (from
+    record_lrs) must differ across the replays and equal the schedule at
+    the update counts.  Then `reps` replays (`drive_captured()`) against
+    `reps` eager calls, timed and each profiled once: step_s (a call over
+    its `updates` updates), images/s (`images` per call), MFU from `flops`
+    per update (or `flops(twin)`, counted on the first twin after the
+    comparison), idle share; captures, capture seconds, graph pool
+    bytes."""
+    from finalproject_losslessimagecompression_tpu_torch.utils.profiling import (  # noqa: E501
+        device_peak_tflops,
+    )
+
+    peak, _ = device_peak_tflops("cuda", "float32")
+    twins = [build() for _ in range(2)]
+    for tw in twins:
+        fill_caches(tw)
+        for _ in range(calls):
+            drive_eager(tw)
+    torch.cuda.synchronize()
+    spread_names, spread = state_diff(train_state(twins[0]),
+                                      train_state(twins[1]))
+    names, diff = state_diff(train_state(t), train_state(twins[0]))
+    equal = not names or (diff <= spread and set(names) <= set(spread_names))
+    assert equal, (label, names[:8], diff, spread)
+    del twins[1]
+    if callable(flops):
+        flops = flops(twins[0])
+    replayed = lrs[1:calls]  # the capturing call replays too
+    opt = getattr(t, "tuner_opt", None) or t.optimizer
+    assert len({tuple(v) for _, v in replayed}) > 1, (label, lrs)
+    assert all(v == [float(np.float32(opt.schedule(c + j)))
+                     for j in range(updates)] for c, v in lrs), (label, lrs)
+    graph_s = call_seconds(drive_captured, reps)
+    eager_s = call_seconds(lambda: drive_eager(twins[0]), reps)
+    out = {"flops_per_step": flops,
+           "captures": step.captures, "capture_s": step.capture_seconds,
+           "graph_pool_bytes": step.pool_bytes,
+           "equal_to_eager": not names, "max_abs_diff_to_eager": diff,
+           "differs_from_eager": names[:8],
+           "eager_spread": spread, "eager_spread_entries": spread_names[:8],
+           "lrs_replayed": [v for _, v in replayed]}
+    for mode, call_s, run in (("captured", graph_s, drive_captured),
+                              ("eager", eager_s,
+                               lambda: drive_eager(twins[0]))):
+        prof = profile_step(run, f"{label}_{mode}", call_s)
+        step_s = call_s / updates
+        out[mode] = {"step_s": step_s, "images_per_s": images / call_s,
+                     "achieved_tflops": flops / step_s / 1e12 if flops
+                     else None,
+                     "mfu_pct": 100.0 * flops / step_s / 1e12 / peak
+                     if flops and peak else None, **prof}
+    out["step_s"] = out["captured"]["step_s"]
+    del twins
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1663,15 +1839,33 @@ def trained(t, wrappers):
 def one_step_flops(t, loss_of_batch):
     """FLOPs of one training step's forward and backward (FlopCounterMode;
     the optimizer's elementwise update is not counted), on the trainer's
-    next train batch, leaving the parameters as they were."""
+    first test batch (the train loader's order stays the eager twins'),
+    leaving the parameters as they were."""
     from finalproject_losslessimagecompression_tpu_torch.utils.profiling import (  # noqa: E501
         step_flops,
     )
 
-    batch = torch.from_numpy(np.asarray(next(t.trainloader))).cuda()
+    batch = torch.from_numpy(np.asarray(next(iter(t.testloader)))).cuda()
     _, flops = step_flops(lambda: loss_of_batch(batch).backward())
     t.optimizer.zero_grad()
     return flops
+
+
+def next_batch(t):
+    """A trainer's next train batch on the card, as its loop copies it."""
+    from finalproject_losslessimagecompression_tpu_torch.codec.interleaved import (  # noqa: E501
+        to_device,
+    )
+
+    return to_device(torch.from_numpy(np.ascontiguousarray(
+        np.asarray(next(t.trainloader)))), "cuda")
+
+
+def twins_of(build_trainer, config):
+    """A function that builds trainers from a copy of `config` as it is
+    now (the twins of the trainer built from it)."""
+    frozen = copy.deepcopy(config)
+    return lambda: build_trainer(copy.deepcopy(frozen))
 
 
 def mfu(flops, step_s):
@@ -1690,6 +1884,7 @@ def resumed_equal(build_trainer, config, t, key):
     """A trainer built from the saved checkpoint (`key` of the train
     config's model subtree names it) equals t: params, optimizer state,
     step."""
+    config = copy.deepcopy(config)
     config["train"][key]["load_path"] = t.save_path
     r = build_trainer(config)
     equal = same_state(t, r)
@@ -1701,7 +1896,10 @@ def resumed_equal(build_trainer, config, t, key):
 def phase_vqvae_train(wrappers, steps: int = 6):
     """configs/vqvae_for_imagenet64_reinit.yaml at full width through
     cli.train: `steps` steps at batch 32 with the dead-code reinit every
-    time the counts pass 2, eval of one batch, checkpoint and resume."""
+    time the counts pass 2, captured by default (step 1 eager, step 2
+    captured, then replays), an epoch of 4 steps (the learning rate
+    changes at step 5; eval of one batch at step 4), checkpoint and
+    resume; then against two eager twins (`against_eager`)."""
     from finalproject_losslessimagecompression_tpu_torch.cli.train import (
         apply_overrides,
         build_trainer,
@@ -1716,12 +1914,16 @@ def phase_vqvae_train(wrappers, steps: int = 6):
     config["train"]["test_dataloader"] = natural_loader((64, 64), batch,
                                                         batch, 12, False)
     apply_overrides(config, [
-        f"train.max_step={steps}", f"train.evaluate_interval={steps}",
-        f"train.save_interval={steps}", "train.max_eval_batches=1",
-        "train.log_every=1", "train.model.vectorquantizer.reinit_interval=2",
+        f"train.max_step={steps}", "train.evaluate_interval=4",
+        f"train.save_interval={steps}", "train.step_per_epoch=4",
+        "train.max_eval_batches=1", "train.log_every=1",
+        "train.model.vectorquantizer.reinit_interval=2",
         f"train.save_path={d}/vqvae.ckpt", f"train.writer_path={d}/log"])
     t = build_trainer(config)
+    twins = twins_of(build_trainer, config)
+    assert t.graphs
     fill_caches(t)
+    lrs = record_lrs(t.optimizer)
     with contextlib.redirect_stdout(io.StringIO()) as out:
         wall, launches, peak_gb = trained(t, wrappers)
     log = os.path.join(d, "log")
@@ -1729,29 +1931,39 @@ def phase_vqvae_train(wrappers, steps: int = 6):
     assert len(losses) == steps and all(map(math.isfinite, losses)), losses
     replaced = int(t.replaced)
     assert replaced > 0, "the dead-code reinit did not fire"
-    step_s = statistics.median(v for _, v in logged("step time s", log))
     test_bpd = logged("test bpd", log)[-1][1]
     assert math.isfinite(test_bpd)
     assert all(v == 0 for v in launches.values()), launches
+    step = t.update_step
+    assert (step.captures, step.replays) == (1, steps - 1)
     equal = resumed_equal(build_trainer, config, t, "model")
     assert equal, "a resumed VQ-VAE trainer differs from the saved one"
+    rep = against_eager(
+        "vqvae_train", t, step, twins, steps,
+        lambda tw: tw.update_step.eager(next_batch(tw)),
+        lambda: t.update(np.asarray(next(t.trainloader))), lrs, 1, batch,
+        lambda tw: one_step_flops(tw, lambda b: tw.loss_fn(b)[0]))
     res = {"phase": "vqvae_train", "config": VQ_CONFIG, "batch": batch,
-           "steps": t.step, "wall_s": wall, "step_s": step_s,
-           "train_images_per_s": batch / step_s, "peak_mem_gb": peak_gb,
-           "codewords_replaced": replaced,
+           "steps": t.step, "wall_s": wall, "step_s": rep["step_s"],
+           "train_images_per_s": batch / rep["step_s"],
+           "peak_mem_gb": peak_gb, "codewords_replaced": replaced,
            "reinit_reports": out.getvalue().count("vq re-init"),
            "train_bpd": [v for _, v in logged("train bpd", log)],
-           "test_bpd": test_bpd, "resume_equal": equal}
+           "test_bpd": test_bpd, "resume_equal": equal, **rep}
     emit(res)
     return res, t.save_path
 
 
-def phase_residual_train(wrappers, vq_ckpt: str, steps: int = 4):
+def phase_residual_train(wrappers, vq_ckpt: str, steps: int = 6,
+                         patches: int = 2):
     """configs/resflow-cond-imagenet64.yaml at full width through
     cli.train, its VQ-VAE the checkpoint phase vqvae_train wrote: `steps`
-    steps at batch 4, eval of one batch with real coding through
-    ResidualCodec, checkpoint and resume; then cli.make_res_data on two
-    batches."""
+    steps at batch 4, each on `patches` of the batch's patches drawn by
+    the trainer's generator (`patch_batch_size`), captured by default, an
+    epoch of 4 steps (the learning rate changes at step 5; eval with real
+    coding through ResidualCodec at step 4), checkpoint and resume;
+    then against two eager twins (`against_eager`, the generator's state
+    included); then cli.make_res_data on two batches."""
     from finalproject_losslessimagecompression_tpu_torch.cli.make_res_data import (  # noqa: E501
         make_res_data,
     )
@@ -1773,26 +1985,42 @@ def phase_residual_train(wrappers, vq_ckpt: str, steps: int = 4):
     config["train"]["test_dataloader"] = natural_loader((64, 64), batch,
                                                         batch, 14, False)
     apply_overrides(config, [
-        f"train.max_step={steps}", f"train.evaluate_interval={steps}",
-        f"train.save_interval={steps}", "train.max_eval_batches=1",
+        f"train.max_step={steps}", "train.evaluate_interval=4",
+        f"train.save_interval={steps}", "train.step_per_epoch=4",
+        f"train.patch_batch_size={patches}", "train.max_eval_batches=1",
         "train.log_every=1", "train.test_coding=true",
         f"train.vqvae.checkpoint={vq_ckpt}",
         f"train.save_path={d}/resflow.ckpt", f"train.writer_path={d}/log"])
-    t = build_trainer(config)
-    perturbed(t.model, seed=15)
+
+    def built(c):
+        t = build_trainer(c)
+        perturbed(t.model, seed=15)
+        return t
+
+    t = built(config)
+    twins = twins_of(built, config)
+    assert t.graphs
     fill_caches(t)
-    flops = one_step_flops(t, lambda b: t.loss_fn(*t._prepare(b)[:2])[0])
+    flops = one_step_flops(t, lambda b: t.loss_fn(
+        *(x[:patches] for x in t._prepare(b)[:2]))[0])
+    lrs = record_lrs(t.optimizer)
     wall, launches, peak_gb = trained(t, wrappers)
     log = os.path.join(d, "log")
     nsplit = t.cfg.nsplit
-    errors = logged("coding errors", log)[-1][1]
-    assert errors == 0, errors
-    # training launches no kernel; the eval codes one batch through
+    errors = [v for _, v in logged("coding errors", log)]
+    assert errors and all(e == 0 for e in errors), errors
+    # training launches no kernel; each eval codes one batch through
     # ResidualCodec, one launch of each kernel per level
-    assert all(v == nsplit for v in launches.values()), launches
-    step_s = statistics.median(v for _, v in logged("step time s", log))
+    assert all(v == nsplit * len(errors) for v in launches.values()), \
+        launches
+    step = t.train_step
+    assert (step.captures, step.replays) == (1, steps - 1)
     equal = resumed_equal(build_trainer, config, t, "flows")
     assert equal, "a resumed residual trainer differs from the saved one"
+    rep = against_eager(
+        "residual_train", t, step, twins, steps,
+        lambda tw: tw.train_step.eager(next_batch(tw)),
+        lambda: t.train_step(next_batch(t)), lrs, 1, batch, flops)
 
     # cli.make_res_data on two batches of the train split
     out = os.path.join(d, "res_data.npz")
@@ -1807,14 +2035,16 @@ def phase_residual_train(wrappers, vq_ckpt: str, steps: int = 4):
     assert res_data_exact and on_grid, (res_data_exact, on_grid)
     tiles = batch * (64 // t.cfg.H) * (64 // t.cfg.W)
     res = {"phase": "residual_train", "config": RES_CONFIG, "batch": batch,
-           "steps": t.step, "wall_s": wall, "step_s": step_s,
-           "train_images_per_s": batch / step_s, **mfu(flops, step_s),
+           "patch_batch_size": patches, "steps": t.step, "wall_s": wall,
+           "train_images_per_s": batch / rep["step_s"],
            "peak_mem_gb": peak_gb,
            "train_bpd": [v for _, v in logged("train bpd", log)],
            "test_bpd": logged("test bpd", log)[-1][1],
            "real_bpd": logged("real bpd", log)[-1][1],
-           "coding_errors": int(errors), "launches_eval": launches,
-           "resume_equal": equal,
+           "coding_errors": int(sum(errors)), "eval_batches": len(errors),
+           "launches_eval": {k: v // len(errors)
+                             for k, v in launches.items()},
+           "resume_equal": equal, **rep,
            "make_res_data": {"images": int(data.shape[0]),
                              "residual_plus_reconstruction_exact":
                              res_data_exact, "reconstruction_on_grid":
@@ -1922,11 +2152,14 @@ def phase_twolevel(wrappers, batch: int = 4, queue: int = 2):
     return res, model
 
 
-def phase_twolevel_train(wrappers, steps: int = 3):
+def phase_twolevel_train(wrappers, steps: int = 6):
     """configs/config_twolevel.yaml at full width through cli.train (batch
     4, the fine flow's activations recomputed in the backward pass):
-    `steps` steps, eval of one batch with real coding through
-    TwoLevelCodec, samples at four temperatures, checkpoint and resume."""
+    `steps` steps captured by default, an epoch of 4 steps (the learning
+    rate changes at step 5; eval of one batch with real coding through
+    TwoLevelCodec at step 4), samples at four temperatures,
+    checkpoint and resume; then against two eager twins
+    (`against_eager`)."""
     from finalproject_losslessimagecompression_tpu_torch.cli.train import (
         apply_overrides,
         build_trainer,
@@ -1941,40 +2174,56 @@ def phase_twolevel_train(wrappers, steps: int = 3):
     config["train"]["test_dataloader"] = natural_loader(
         (215, 178), batch, batch, 18, False)
     apply_overrides(config, [
-        f"train.max_step={steps}", f"train.evaluate_interval={steps}",
-        f"train.save_interval={steps}", "train.max_eval_batches=1",
-        "train.log_every=1", "train.test_coding=true",
+        f"train.max_step={steps}", "train.evaluate_interval=4",
+        f"train.save_interval={steps}", "train.step_per_epoch=4",
+        "train.max_eval_batches=1", "train.log_every=1",
+        "train.test_coding=true",
         f"train.save_path={d}/twolevel.ckpt", f"train.writer_path={d}/log"])
-    t = build_trainer(config)
-    perturbed(t.model, seed=19)
+
+    def built(c):
+        t = build_trainer(c)
+        perturbed(t.model, seed=19)
+        return t
+
+    t = built(config)
+    twins = twins_of(built, config)
+    assert t.graphs
     fill_caches(t)
     flops = one_step_flops(t, lambda b: t.loss_fn(b)[0])
+    lrs = record_lrs(t.optimizer)
     wall, launches, peak_gb = trained(t, wrappers)
     log = os.path.join(d, "log")
     cfg = t.cfg
-    errors = logged("coding errors", log)[-1][1]
-    assert errors == 0, errors
+    errors = [v for _, v in logged("coding errors", log)]
+    assert errors and all(e == 0 for e in errors), errors
     nl = cfg.rough.nsplit + cfg.fine.nsplit
-    assert all(v == nl for v in launches.values()), launches
-    step_s = statistics.median(v for _, v in logged("step time s", log))
+    assert all(v == nl * len(errors) for v in launches.values()), launches
+    step = t.train_step
+    assert (step.captures, step.replays) == (1, steps - 1)
     samples = t.sample_images()
     shapes = sorted({tuple(v.shape) for v in samples.values()})
     assert shapes == [(4, cfg.H, cfg.W, cfg.C)] and len(samples) == 4
     assert all(np.all(np.isfinite(v)) for v in samples.values())
     equal = resumed_equal(build_trainer, config, t, "model")
     assert equal, "a resumed two-level trainer differs from the saved one"
+    rep = against_eager(
+        "twolevel_train", t, step, twins, steps,
+        lambda tw: tw.train_step.eager(next_batch(tw)),
+        lambda: t.train_step(next_batch(t)), lrs, 1, batch, flops)
     res = {"phase": "twolevel_train", "config": TL_CONFIG, "batch": batch,
-           "steps": t.step, "wall_s": wall, "step_s": step_s,
-           "train_images_per_s": batch / step_s, **mfu(flops, step_s),
+           "steps": t.step, "wall_s": wall,
+           "train_images_per_s": batch / rep["step_s"],
            "peak_mem_gb": peak_gb,
            "train_bpd": [v for _, v in logged("train bpd", log)],
            "train_bpd_1": [v for _, v in logged("train bpd 1", log)],
            "train_bpd_2": [v for _, v in logged("train bpd 2", log)],
            "test_bpd": logged("test bpd", log)[-1][1],
            "real_bpd": logged("real bpd", log)[-1][1],
-           "coding_errors": int(errors), "launches_eval": launches,
+           "coding_errors": int(sum(errors)), "eval_batches": len(errors),
+           "launches_eval": {k: v // len(errors)
+                             for k, v in launches.items()},
            "sample_shapes": [list(s) for s in shapes],
-           "resume_equal": equal}
+           "resume_equal": equal, **rep}
     emit(res)
     return res
 
@@ -2060,22 +2309,16 @@ VIS_CONFIG = "configs/vis_config_imagenet64.yaml"
 TOOLS_DIR = os.path.join(ROOT, "logs", "chip_smoke_tools")
 
 
-def step_seconds(log_dir, tag):
-    """Median host seconds between consecutive records of `tag` after the
-    first (each record is written right after the step's loss fetch)."""
-    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
-        times = [r["time"] for r in map(json.loads, f) if r["tag"] == tag]
-    return statistics.median(b - a for a, b in zip(times[1:], times[2:]))
-
-
 def phase_finetune(wrappers, ckpt: str, steps: int = 8):
     """configs/config-trans-test.yaml at full width through cli.train (the
     Finetuner: 64x48x3, nflows 8, nsplit 3, DenseBlocks 512 x 12, batch
-    16, Adam at fine_tune_lr 1e-3), its load_path `ckpt` (the flagship
-    flow's weights: the same architecture, and a flow's weights do not
-    depend on the image size), both loaders on NaturalSynthetic 64x48:
-    `steps` tuning steps saving every 4, a resume check, then 3 steps with
-    fine_tune off."""
+    16), with the config's own Adamax and warm-up schedule in place of the
+    constant fine_tune_lr, over epochs of 4 steps (the learning rate
+    changes at step 5), its load_path `ckpt` (the flagship flow's weights:
+    the same architecture, and a flow's weights do not depend on the image
+    size), both loaders on NaturalSynthetic 64x48: `steps` tuning steps
+    captured by default saving every 4, against two eager twins
+    (`against_eager`), a resume check, then 3 steps with fine_tune off."""
     from finalproject_losslessimagecompression_tpu_torch.cli.train import (
         apply_overrides,
         build_trainer,
@@ -2094,16 +2337,21 @@ def phase_finetune(wrappers, ckpt: str, steps: int = 8):
     train["train_dataloader"] = natural_loader(size, batch, steps * batch,
                                                21, True)
     train["test_dataloader"] = natural_loader(size, batch, batch, 22, False)
+    train["fine_tune_lr"] = None
     apply_overrides(config, [
         f"train.model.load_path={ckpt}", f"train.max_step={steps}",
         "train.save_interval=4", "train.evaluate_interval=4",
+        "train.step_per_epoch=4",
         f"train.save_path={d}/ft.ckpt", f"train.writer_path={d}/log"])
     t = build_trainer(config)
+    twins = twins_of(build_trainer, config)
+    assert t.graphs
     fill_caches(t)
     frozen = {k: v.clone() for k, v in t.model.state_dict().items()}
     x = torch.from_numpy(np.asarray(next(iter(t.testloader)))).cuda()
     _, flops = step_flops(lambda: t.loss_fn(x).backward())
     t.tuner_opt.zero_grad()
+    lrs = record_lrs(t.tuner_opt)
     wall, launches, peak_gb = trained(t, wrappers)
     log = os.path.join(d, "log")
     bpd = [v for _, v in logged("bpd", log)]
@@ -2113,7 +2361,10 @@ def phase_finetune(wrappers, ckpt: str, steps: int = 8):
     tuner_max = float(t.tuner.detach().abs().max())
     assert tuner_max > 0, "the tuner did not move"
     assert all(v == 0 for v in launches.values()), launches
-    r = build_trainer(apply_overrides(config, ["train.resume=true"]))
+    step = t.tune_step
+    assert (step.captures, step.replays) == (1, steps - 1)
+    r = build_trainer(apply_overrides(copy.deepcopy(config),
+                                      ["train.resume=true"]))
     a, b = t.tuner_opt.state_dict(), r.tuner_opt.state_dict()
     resume_equal = (r.step == t.step == steps and a["count"] == b["count"]
                     and torch.equal(r.tuner, t.tuner)
@@ -2121,6 +2372,10 @@ def phase_finetune(wrappers, ckpt: str, steps: int = 8):
                             for k in a["state"][0]))
     assert resume_equal, "a resumed fine-tuner differs from the saved one"
     del r
+    rep = against_eager(
+        "finetune", t, step, twins, steps,
+        lambda tw: tw.tune_step.eager(next_batch(tw)),
+        lambda: t.tune_step(next_batch(t)), lrs, 1, batch, flops)
     m = os.path.join(d, "measure")
     apply_overrides(config, [
         "train.resume=false", "train.fine_tune=false", "train.max_step=3",
@@ -2132,11 +2387,9 @@ def phase_finetune(wrappers, ckpt: str, steps: int = 8):
     assert len(measured) == 3 and all(map(math.isfinite, measured))
     assert float(f.tuner.detach().abs().max()) == 0.0
     assert not os.path.exists(f.save_path), "measure-only run saved"
-    step_s = step_seconds(log, "bpd")
     res = {"phase": "finetune", "config": FT_CONFIG, "batch": batch,
            "image": [t.cfg.H, t.cfg.W, t.cfg.C], "steps": t.step,
-           "wall_s": wall, "step_s": step_s,
-           "train_images_per_s": batch / step_s, **mfu(flops, step_s),
+           "wall_s": wall, "train_images_per_s": batch / rep["step_s"],
            "flops_counted": "forward and backward, input gradients only",
            "peak_mem_gb": peak_gb, "bpd_first": bpd[0], "bpd_last": bpd[-1],
            "bpd": bpd, "bpd_mean": [v for _, v in logged("bpd mean", log)],
@@ -2144,7 +2397,7 @@ def phase_finetune(wrappers, ckpt: str, steps: int = 8):
            "launches": launches, "resume_equal": resume_equal,
            "measure_only": {"steps": f.step, "bpd": measured,
                             "tuner_zero": True, "checkpoint_written": False},
-           "phase_s": time.time() - t0}
+           **rep, "phase_s": time.time() - t0}
     emit(res)
     return res
 
@@ -2445,10 +2698,11 @@ def sharded_round_trip(wrappers, sharded, x):
                  "compress_s": enc_s, "decompress_s": dec_s}
 
 
-def scaleout_nccl_rank(path):
+def scaleout_nccl_rank(path, steps: int = 3):
     """(a) One NCCL rank on cuda:0: ShardedFlowCodec on the flagship at
-    batch 16 against FlowCodec.compress of the batch, and one sharded train
-    step of configs/imagenet64.yaml's model against the plain step."""
+    batch 16 against FlowCodec.compress of the batch, and `steps` sharded
+    train steps of configs/imagenet64.yaml's model (captured: eager,
+    capture, replay) against as many plain eager steps, bit for bit."""
     import torch.distributed as dist
 
     from finalproject_losslessimagecompression_tpu_torch.cli.train import (
@@ -2491,11 +2745,19 @@ def scaleout_nccl_rank(path):
     opts = [build_optimizer(m.parameters(), train["optimizer"],
                             train["scheduler"], train["step_per_epoch"])
             for m in models]
-    _, sharded_s = timed(
-        lambda: make_sharded_train_step(models[0], opts[0], mesh)(batch))
-    lat, m, ls = models[1](batch)
-    (-log_likelihood(cfg, lat, m, ls)[0].mean()).backward()
-    opts[1].step()
+    # the sharded step is captured (its first call eager, the second
+    # captures and replays, the third replays), the NCCL all_reduce in its
+    # graph; the plain steps are eager
+    sharded = make_sharded_train_step(models[0], opts[0], mesh)
+    step_s = [timed(lambda: sharded(batch))[1] for _ in range(steps)]
+    for _ in range(steps):
+        opts[1].zero_grad()
+        lat, m, ls = models[1](batch)
+        (-log_likelihood(cfg, lat, m, ls)[0].mean()).backward()
+        opts[1].step()
+    graphed = sharded.graphed
+    assert graphed.graphs and (graphed.captures, graphed.replays) == (
+        1, steps - 1), (graphed.captures, graphed.replays)
     equal = all(torch.equal(a, b) for a, b in zip(
         models[0].state_dict().values(), models[1].state_dict().values()))
     assert equal, "the one-rank sharded step differs from the plain step"
@@ -2504,7 +2766,10 @@ def scaleout_nccl_rank(path):
                    "device": str(device), "containers": len(blobs),
                    "byte_identical": True, "bit_exact": True,
                    "launches": launches, "train_step_equal": equal,
-                   "first_sharded_step_s": sharded_s,
+                   "train_steps": steps, "captures": graphed.captures,
+                   "replays": graphed.replays,
+                   "capture_s": graphed.capture_seconds,
+                   "sharded_step_s": step_s,
                    "collective_calls": mesh.comm_calls,
                    "collective_s": mesh.comm_s}, f)
     dist.destroy_process_group()

@@ -147,7 +147,10 @@ class TwoLevelFlow(nn.Module):
         rx, px = self.split_levels(x)
         rough_out = self.rough(rx)
         if torch.is_grad_enabled():
-            fine_out = checkpoint(self.fine, px, use_reentrant=False)
+            # the fine flow draws no random numbers, and reading the card's
+            # RNG state is not allowed while a train step is captured
+            fine_out = checkpoint(self.fine, px, use_reentrant=False,
+                                  preserve_rng_state=False)
         else:
             fine_out = self.fine(px)
         return rough_out, fine_out

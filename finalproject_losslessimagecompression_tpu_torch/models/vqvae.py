@@ -62,7 +62,11 @@ class VectorQuantizer(nn.Module):
         loss = beta * torch.mean((x - vq_x.detach()) ** 2) + \
             gamma * torch.mean((x.detach() - vq_x) ** 2)
         vq_x = x + (vq_x - x).detach()
-        counts = torch.bincount(idx, minlength=self.num).to(torch.float32) \
+        # bincount's values without its host read of the largest index (a
+        # sync, which a captured step may not make)
+        counts = torch.zeros(self.num, dtype=torch.int64,
+                             device=idx.device).index_add_(
+            0, idx, torch.ones_like(idx)).to(torch.float32) \
             * (1.0 / idx.shape[0])
         return vq_x, loss, idx, counts
 

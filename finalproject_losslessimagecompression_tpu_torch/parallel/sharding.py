@@ -27,6 +27,7 @@ import torch
 import torch.distributed as dist
 
 from ..models.idflow import IDFlow, log_likelihood
+from ..utils.graphs import optimizer_step
 from .mesh import Mesh, make_mesh
 
 
@@ -100,18 +101,28 @@ def eval_batch(host: np.ndarray, loader, mesh: Optional[Mesh]):
     return host, shard_batch(host, mesh)
 
 
-def sharded_update(loss: torch.Tensor, optimizer,
-                   mesh: Optional[Mesh]) -> torch.Tensor:
+def graphs_allowed(mesh: Optional[Mesh]) -> bool:
+    """Whether a train step over `mesh` can be captured as a CUDA graph:
+    without a mesh, or under NCCL (its all_reduce is captured in the
+    graph).  Gloo stages every collective through the host after a
+    synchronize (`Mesh._to_comm`), so its steps run eagerly."""
+    return mesh is None or mesh.backend == "nccl"
+
+
+def sharded_update(loss: torch.Tensor, optimizer, mesh: Optional[Mesh],
+                   lr: torch.Tensor) -> torch.Tensor:
     """Backward of this rank's loss, gradients averaged over the mesh,
-    one optimizer update; returns the global mean loss (detached).
-    Without a mesh, the plain update of the loss.
+    one optimizer update at lr (an element of the step's
+    `optimizer.lrs`); returns the global mean loss (detached).  Without a
+    mesh, the plain update of the loss.  Device work only: the update
+    count is the step's (`Optimizer.advance`).
 
     A parameter this rank's loss does not reach takes a zero gradient, so
     every rank updates every parameter alike."""
     optimizer.zero_grad()
     if mesh is None:
         loss.backward()
-        optimizer.step()
+        optimizer.update(lr)
         return loss.detach()
     if loss.requires_grad:
         loss.backward()
@@ -125,11 +136,13 @@ def sharded_update(loss: torch.Tensor, optimizer,
         n = p.numel()
         p.grad = flat[pos:pos + n].view_as(p)
         pos += n
-    optimizer.step()
+    optimizer.update(lr)
     return flat[-1]
 
 
-def _loss(model: IDFlow, batch, cond, conditional: bool):
+def flow_nll(model: IDFlow, batch, cond, conditional: bool):
+    """The mean NLL (nats/dim) of a flow on a batch (with its cond where
+    the flow is conditional)."""
     latents, means, logscales = model(batch, cond if conditional else None)
     lp, _ = log_likelihood(model.cfg, latents, means, logscales)
     return -lp.mean()
@@ -144,19 +157,26 @@ def _as_device(x, device):
 
 class ShardedTrainStep:
     """`step(batch, cond=None)` on the global batch, or `step.local(...)`
-    on this rank's shard: one update; returns the global mean loss."""
+    on this rank's shard: one update; returns the global mean loss.  The
+    update is a `GraphedStep` (`step.graphed`), captured on the card under
+    NCCL and eager under gloo (`graphs_allowed`)."""
 
     def __init__(self, model: IDFlow, optimizer, mesh: Mesh,
                  conditional: bool = False):
         self.model, self.optimizer, self.mesh = model, optimizer, mesh
         self.conditional = conditional
         replicate(model, mesh)
+        self.graphed = optimizer_step(self._body, optimizer, model.device,
+                                      graphs=graphs_allowed(mesh))
+
+    def _body(self, batch, cond=None) -> torch.Tensor:
+        loss = flow_nll(self.model, batch, cond, self.conditional)
+        return sharded_update(loss, self.optimizer, self.mesh,
+                              self.optimizer.lrs(1)[0])
 
     def local(self, batch, cond=None) -> torch.Tensor:
         dev = self.model.device
-        loss = _loss(self.model, _as_device(batch, dev),
-                     _as_device(cond, dev), self.conditional)
-        return sharded_update(loss, self.optimizer, self.mesh)
+        return self.graphed(_as_device(batch, dev), _as_device(cond, dev))
 
     def __call__(self, batch, cond=None) -> torch.Tensor:
         return self.local(shard_batch(batch, self.mesh),
@@ -177,7 +197,7 @@ def make_sharded_eval_step(model: IDFlow, mesh: Mesh,
     @torch.no_grad()
     def eval_step(batch, cond=None):
         dev = model.device
-        loss = _loss(model, _as_device(shard_batch(batch, mesh), dev),
+        loss = flow_nll(model, _as_device(shard_batch(batch, mesh), dev),
                      None if cond is None
                      else _as_device(shard_batch(cond, mesh), dev),
                      conditional)

@@ -1,5 +1,6 @@
 """Training: optimizers and schedules, checkpoints (either package's),
-metrics, the flow, VQ-VAE, residual and two-level trainers and the
+metrics, the flow trainer's step makers (captured as CUDA graphs on the
+card), the flow, VQ-VAE, residual and two-level trainers and the
 fine-tuner."""
 
 from . import optim  # registers optimizers/schedulers
@@ -9,7 +10,12 @@ from .metrics import MetricsWriter
 from .msgpack import load_raw, msgpack_restore
 from .optim import Optimizer, build_optimizer, warmup_exp_schedule
 from .residual_trainer import ResidualTrainer
-from .trainer import Trainer
+from .trainer import (
+    Trainer,
+    make_forward,
+    make_multi_train_step,
+    make_train_step,
+)
 from .twolevel_trainer import TwoLevelTrainer
 from .vqvae_trainer import VQVAETrainer
 
@@ -25,6 +31,9 @@ __all__ = [
     "build_optimizer",
     "warmup_exp_schedule",
     "Trainer",
+    "make_forward",
+    "make_multi_train_step",
+    "make_train_step",
     "VQVAETrainer",
     "ResidualTrainer",
     "TwoLevelTrainer",

@@ -13,8 +13,9 @@ end, and `resume` restores them.
 
 Each step logs its bpd (one host sync per step, as in JAX); every
 `evaluate_interval` steps the mean since the last one is logged as
-`bpd mean`.  The fine-tuner runs on the card unless the caller passes
-device="cpu".
+`bpd mean`.  A tuning step is one `utils.graphs.GraphedStep`: on the card
+it is captured as a CUDA graph at its second call and replayed after.
+The fine-tuner runs on the card unless the caller passes device="cpu".
 """
 
 from __future__ import annotations
@@ -25,11 +26,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..codec.interleaved import to_device
 from ..convert import params_from_flax
 from ..data import loader as _loader  # noqa: F401  (registers loaders)
 from ..models.config import FlowCfg
 from ..models.idflow import IDFlow, log_likelihood, resolve_device
 from ..registry import DATALOADERS, TRAINERS, build
+from ..utils.graphs import optimizer_step
 from .checkpoint import load_checkpoint, load_params, save_checkpoint
 from .metrics import MetricsWriter
 from .optim import build_optimizer
@@ -88,6 +91,9 @@ class Finetuner:
                                          step_per_epoch)
         if resume:
             self.restore(self.save_path)
+        self.tune_step = optimizer_step(self._tune_body, self.tuner_opt,
+                                        self.device)
+        self.graphs = self.tune_step.graphs
 
     # -- checkpointing: the tuner and its optimizer state ------------------
 
@@ -114,19 +120,21 @@ class Finetuner:
         lp, _ = log_likelihood(self.cfg, latents, means, logscales)
         return -lp.mean()
 
-    def tune_step(self, batch: torch.Tensor) -> torch.Tensor:
+    def _tune_body(self, batch: torch.Tensor) -> torch.Tensor:
+        """The body of `tune_step(batch)`: one update of the tuner; returns
+        the loss on the device."""
         loss = self.loss_fn(batch)
         self.tuner_opt.zero_grad()
         loss.backward()
-        self.tuner_opt.step()
+        self.tuner_opt.update(self.tuner_opt.lrs(1)[0])
         return loss.detach()
 
     def train(self):
         bpds = []
         while self.step < self.max_step:
             self.step += 1
-            batch = torch.from_numpy(np.asarray(next(self.trainloader))).to(
-                self.device)
+            batch = to_device(torch.from_numpy(np.asarray(
+                next(self.trainloader))), self.device)
             if self.fine_tune:
                 loss = self.tune_step(batch)
             else:

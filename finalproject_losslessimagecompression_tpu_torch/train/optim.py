@@ -9,13 +9,22 @@ starts at 0, is saved in the optimizer state and is NOT the trainer's step
     lr(count) = base_lr * min(1, (epoch + 1) / warmup) * beta^(epoch + 1 - warmup)
     epoch = count // step_per_epoch
 
-`Optimizer.step` sets every group's learning rate to lr(count) and then
-runs the torch optimizer, whose Adamax (max(|g| + eps, b2 * nu)) and Adam
-updates are optax's algebra.  `grad_clip_norm` clips as optax's
-`clip_by_global_norm` does -- g * max_norm / ||g|| when ||g|| >= max_norm,
-with no epsilon -- and not as `torch.nn.utils.clip_grad_norm_`, which
-divides by ||g|| + 1e-6.  Neither the clip nor the schedule syncs with the
-host.
+The schedule stays a host function of the count, in float32 as the JAX
+package evaluates it.  A step of K updates first writes lr(count) ..
+lr(count + K - 1) into a device tensor of its own (`next_lrs`: one
+non-blocking copy from pinned memory, no sync), each update reads its
+element (`update(lr)`), and the step then advances the count by K
+(`advance`).  So a step captured as a CUDA graph reads each replay's
+learning rates from that tensor instead of baking in the ones it was
+captured with.  On the card the torch optimizers are `capturable`: the
+learning rate is a device tensor and the per-parameter step counters live
+on the device.  Adamax (max(|g| + eps, b2 * nu)) and Adam are optax's
+algebra; SGD is the package's own (`SGD`: torch.optim.SGD takes its
+learning rate as a host number), with optax's rounding.  `grad_clip_norm`
+clips as optax's `clip_by_global_norm` does -- g * max_norm / ||g|| when
+||g|| >= max_norm, with no epsilon -- and not as
+`torch.nn.utils.clip_grad_norm_`, which divides by ||g|| + 1e-6.  Neither
+the clip nor the update syncs with the host.
 """
 
 from __future__ import annotations
@@ -35,10 +44,15 @@ def warmup_exp_schedule(
 
     def schedule(count: int) -> float:
         # in float32, as the JAX package evaluates it: beta^(e1 - warmup)
-        # over thousands of epochs carries float32(beta)'s rounding
+        # over thousands of epochs carries float32(beta)'s rounding.  The
+        # power of the float32 operands is rounded once from float64;
+        # XLA's float32 pow agrees with that within 2 ulps (numpy's own
+        # float32 power differs from it more often)
         e1 = f32(count // step_per_epoch + 1)
+        power = f32(np.power(np.float64(f32(beta)),
+                             np.float64(e1 - f32(warmup))))
         return float(f32(base_lr) * np.minimum(f32(1), e1 / f32(warmup))
-                     * np.power(f32(beta), e1 - f32(warmup)))
+                     * power)
 
     return schedule
 
@@ -60,19 +74,57 @@ def _betas(kw: dict) -> dict:
     return kw
 
 
+def _lr0(capturable: bool, params):
+    """The initial learning rate: a device tensor for a capturable
+    optimizer (each update points the groups at its own element)."""
+    if capturable:
+        return torch.zeros((), device=params[0].device)
+    return 0.0
+
+
 @OPTIMIZERS.register(name="Adamax")
-def adamax(params, **kw):
-    return torch.optim.Adamax(params, lr=0.0, **_betas(kw))
+def adamax(params, capturable=False, **kw):
+    return torch.optim.Adamax(params, lr=_lr0(capturable, params),
+                              capturable=capturable, **_betas(kw))
 
 
 @OPTIMIZERS.register(name="Adam")
-def adam(params, **kw):
-    return torch.optim.Adam(params, lr=0.0, **_betas(kw))
+def adam(params, capturable=False, **kw):
+    return torch.optim.Adam(params, lr=_lr0(capturable, params),
+                            capturable=capturable, **_betas(kw))
+
+
+class SGD(torch.optim.Optimizer):
+    """optax's sgd (momentum as `optax.trace`, optionally Nesterov), with a
+    learning rate that may be a device tensor, so that its update captures
+    in a CUDA graph (torch.optim.SGD reads its learning rate on the host).
+    Each update rounds as optax does: p - lr * g, the trace g + m * t."""
+
+    def __init__(self, params, lr=0.0, momentum=None, nesterov=False):
+        super().__init__(params, {"lr": lr, "momentum": momentum or 0.0,
+                                  "nesterov": nesterov})
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            lr, m = group["lr"], group["momentum"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                if m:
+                    st = self.state[p]
+                    if "momentum_buffer" not in st:
+                        st["momentum_buffer"] = torch.zeros_like(p)
+                    buf = st["momentum_buffer"]
+                    buf.copy_(g + m * buf)
+                    g = g + m * buf if group["nesterov"] else buf
+                p.sub_(lr * g)
 
 
 @OPTIMIZERS.register(name="SGD")
-def sgd(params, **kw):
-    return torch.optim.SGD(params, lr=0.0, **kw)
+def sgd(params, capturable=False, **kw):
+    return SGD(params, lr=_lr0(capturable, params), **kw)
 
 
 def clip_by_global_norm_(grads: Iterable[torch.Tensor],
@@ -88,14 +140,19 @@ def clip_by_global_norm_(grads: Iterable[torch.Tensor],
 
 class Optimizer:
     """A torch optimizer driven by a schedule of its update count, with an
-    optional global-norm clip in front."""
+    optional global-norm clip in front.  `capturable` (the torch
+    optimizer's): the learning rate and the step counters on the device."""
 
     def __init__(self, inner: torch.optim.Optimizer,
-                 schedule: Callable[[int], float], grad_clip_norm=None):
+                 schedule: Callable[[int], float], grad_clip_norm=None,
+                 capturable: bool = False):
         self.inner = inner
         self.schedule = schedule
         self.grad_clip_norm = grad_clip_norm
+        self.capturable = capturable
         self.count = 0
+        # K -> the [K] learning rates of a step of K updates
+        self._lrs: Dict[int, torch.Tensor] = {}
 
     @property
     def params(self):
@@ -108,16 +165,46 @@ class Optimizer:
     def zero_grad(self) -> None:
         self.inner.zero_grad(set_to_none=True)
 
-    def step(self) -> None:
+    def next_lrs(self, K: int) -> torch.Tensor:
+        """The learning rates of the next K updates, lr(count) ..
+        lr(count + K - 1), written into the step's [K] float32 tensor on
+        the parameters' device (the same tensor at every call) and
+        returned."""
+        host = torch.tensor([self.schedule(self.count + j) for j in range(K)],
+                            dtype=torch.float32)
+        lrs = self._lrs.get(K)
+        if lrs is None:
+            lrs = self._lrs[K] = torch.empty(K, device=self.params[0].device)
+        if lrs.device.type == "cuda":
+            host = host.pin_memory()
+        lrs.copy_(host, non_blocking=True)
+        return lrs
+
+    def lrs(self, K: int) -> torch.Tensor:
+        """The [K] tensor `next_lrs(K)` last filled (what a step's body
+        reads)."""
+        return self._lrs[K]
+
+    def update(self, lr: torch.Tensor) -> None:
+        """One update at lr (a 0-d element of `lrs`): the clip and the
+        torch optimizer's step, device work only; the count is the
+        caller's (`advance`)."""
         if self.grad_clip_norm:
             clip_by_global_norm_(
                 [p.grad for p in self.params if p.grad is not None],
                 self.grad_clip_norm)
-        lr = self.lr()
         for group in self.inner.param_groups:
-            group["lr"] = lr
+            # a host number off the card (reading a CPU tensor is no sync)
+            group["lr"] = lr if self.capturable else float(lr)
         self.inner.step()
-        self.count += 1
+
+    def advance(self, K: int) -> None:
+        self.count += K
+
+    def step(self) -> None:
+        """One update at lr(count), not captured."""
+        self.update(self.next_lrs(1)[0])
+        self.advance(1)
 
     def state_dict(self) -> Dict:
         """{"count": updates so far, "state": the torch optimizer's
@@ -126,11 +213,15 @@ class Optimizer:
                 "state": self.inner.state_dict()["state"]}
 
     def load_state_dict(self, sd: Dict) -> None:
-        """Moments go to their parameters' device; the per-parameter step
-        counters stay on the host, where torch keeps them (a counter on the
-        card would cost a host sync per parameter per update)."""
+        """Moments go to their parameters' device.  The per-parameter step
+        counters go where this optimizer keeps them, whichever form the
+        state was saved in: on the parameters' device when it is
+        capturable (torch moves them), else on the host (a counter on the
+        card would cost the non-capturable update a host sync per
+        parameter)."""
         groups = self.inner.state_dict()["param_groups"]
-        state = {i: {k: (v.cpu() if k == "step" else v)
+        state = {i: {k: (v.cpu() if k == "step" and not self.capturable
+                         else v)
                      for k, v in st.items()}
                  for i, st in sd["state"].items()}
         self.inner.load_state_dict({"state": state, "param_groups": groups})
@@ -138,9 +229,13 @@ class Optimizer:
 
 
 def build_optimizer(params, optimizer_cfg: dict, scheduler_cfg: dict,
-                    step_per_epoch: int) -> Optimizer:
+                    step_per_epoch: int, capturable=None) -> Optimizer:
     """Combine optimizer + scheduler configs (YAML shape: optimizer: {name,
-    lr, grad_clip_norm?, ...}, scheduler: {name, warmup, beta})."""
+    lr, grad_clip_norm?, ...}, scheduler: {name, warmup, beta}).
+    `capturable` defaults to whether the parameters are on the card."""
+    params = list(params)
+    if capturable is None:
+        capturable = params[0].device.type == "cuda"
     ocfg = dict(optimizer_cfg)
     oname = ocfg.pop("name")
     base_lr = ocfg.pop("lr", ocfg.pop("learning_rate", 1e-3))
@@ -150,5 +245,6 @@ def build_optimizer(params, optimizer_cfg: dict, scheduler_cfg: dict,
     schedule = SCHEDULERS.get(sname)(
         base_lr=base_lr, step_per_epoch=step_per_epoch, **scfg
     )
-    return Optimizer(OPTIMIZERS.get(oname)(list(params), **ocfg), schedule,
-                     grad_clip)
+    return Optimizer(
+        OPTIMIZERS.get(oname)(params, capturable=capturable, **ocfg),
+        schedule, grad_clip, capturable)

@@ -31,6 +31,15 @@ subset's mean.  Eval coding of the conditional pipeline goes through
 patch codec's eval runs the global batch on every rank and codes it with
 the plain codec, as the JAX trainer does.
 
+A training step (`train_step`: the frozen VQ-VAE's reconstruction, the
+patches, the loss, backward and update) is one `utils.graphs.GraphedStep`,
+captured on the card as a CUDA graph at its second call and replayed
+after.  The `patch_batch_size` draw stays outside the graph: before every
+call it is drawn from the trainer's generator, as the eager step draws it,
+into a static index tensor the graph reads, so the generator's sequence is
+the eager path's.  Over a mesh the steps run eagerly: a rank's share of
+the draw has a length that depends on the data.
+
 Losses come back to the host only at the `log_every` cadence.  The trainer
 runs on the card unless the caller passes device="cpu".
 """
@@ -43,6 +52,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..codec.interleaved import to_device
 from ..convert import params_from_flax, vqvae_params_from_flax
 from ..data import loader as _loader  # noqa: F401  (registers loaders)
 from ..models.config import FlowCfg
@@ -63,6 +73,7 @@ from ..parallel.sharding import (
     trainer_mesh,
 )
 from ..registry import DATALOADERS, TRAINERS, build
+from ..utils.graphs import optimizer_step
 from ..utils.profiling import StepClock
 from .checkpoint import load_params, restore_train_state, save_checkpoint
 from .optim import build_optimizer
@@ -150,6 +161,15 @@ class ResidualTrainer:
             None if self.res_codec is None or self.mesh is None
             else ShardedResidualCodec(self.res_codec, self.mesh))
         self.gen = torch.Generator(device=self.device).manual_seed(seed + 2)
+        # the plain step's patch draw, made before each call (`_draw`)
+        self._sel = None
+        self.train_step = optimizer_step(
+            self._train_body, self.optimizer, self.device,
+            graphs=self.mesh is None, before=self._draw)
+        self.graphs = self.train_step.graphs
+        if self.device.type == "cuda" and self.mesh is not None:
+            print("ResidualTrainer: graphs false: eager steps over a mesh "
+                  "(a rank's share of the patch draw depends on the data)")
 
     # -- checkpointing ----------------------------------------------------
 
@@ -214,14 +234,30 @@ class ResidualTrainer:
         mine = sel[(sel >= lo) & (sel < lo + n)] - lo
         return mine, mine.numel() * D / k
 
-    def train_step(self, data: torch.Tensor):
-        """One update on an image batch (over a mesh, this rank's images);
-        returns (loss, aux) on the device, no host sync (over a mesh: the
-        global loss, this rank's aux)."""
+    def _draw(self, data: torch.Tensor) -> None:
+        """The plain step's `patch_batch_size` draw from the patches of
+        `data`, into the static index tensor its body reads."""
+        if not self.patch_batch_size or self.mesh is not None:
+            return
+        cfg = self.cfg
+        n = data.shape[0] * (data.shape[1] // cfg.H) * (data.shape[2] // cfg.W)
+        sel, _ = self._select(n)
+        if self._sel is None:
+            self._sel = torch.empty_like(sel)
+        self._sel.copy_(sel)
+
+    def _train_body(self, data: torch.Tensor):
+        """The body of `train_step(data)`: one update on an image batch
+        (over a mesh, this rank's images); returns (loss, aux) on the
+        device, no host sync (over a mesh: the global loss, this rank's
+        aux)."""
         patches, rec_patches, _ = self._prepare(data)
         weight = 1.0
         if self.patch_batch_size:
-            sel, weight = self._select(patches.shape[0])
+            if self.mesh is None:
+                sel = self._sel
+            else:
+                sel, weight = self._select(patches.shape[0])
             patches = patches[sel]
             if rec_patches is not None:
                 rec_patches = rec_patches[sel]
@@ -231,7 +267,8 @@ class ResidualTrainer:
             aux = {k: v.detach() for k, v in aux.items()}
         else:  # no patch of the draw is this rank's
             loss, aux = torch.zeros((), device=self.device), {}
-        return sharded_update(loss * weight, self.optimizer, self.mesh), aux
+        return sharded_update(loss * weight, self.optimizer, self.mesh,
+                              self.optimizer.lrs(1)[0]), aux
 
     @torch.no_grad()
     def eval_step(self, data: torch.Tensor):
@@ -326,8 +363,8 @@ class ResidualTrainer:
             host = np.asarray(next(self.trainloader))
             if self.mesh is not None:
                 host = local_batch(host, self.trainloader, self.mesh)
-            data = torch.from_numpy(np.ascontiguousarray(host)).to(
-                self.device)
+            data = to_device(torch.from_numpy(np.ascontiguousarray(host)),
+                             self.device)
             loss, _ = self.train_step(data)
             if self.step % self.log_every == 0:
                 lv = float(loss)  # the host sync, at the log cadence only

@@ -1,11 +1,19 @@
-"""Flow trainer: the JAX package's `Trainer` on PyTorch.
+"""Flow trainer: the JAX package's `Trainer` on PyTorch, and the
+functions that make its steps.
 
 One train step is forward, `log_likelihood`, backward, the optimizer's
-clip and update.  Steps run in blocks of K = `steps_per_dispatch`: the K
-batches go to the device in one copy, the K steps run with no host sync
-and their losses stay stacked on the device, and one copy brings the K
-losses back when the block is logged -- the JAX package's scanned K-step
-program, with eager steps.  Intervals must be multiples of K.
+clip and update.  `make_train_step`, `make_multi_train_step` and
+`make_forward` build the JAX package's single-dispatch programs as
+`utils.graphs.GraphedStep`s: on the card each is captured once as a CUDA
+graph (at its second call; the first runs eagerly and is the capture's
+warm-up) and replayed per call, and a block of K steps is one replay; on
+the CPU they run eagerly.  The trainer runs blocks of K =
+`steps_per_dispatch` steps: the K batches go to the device in one copy
+(into the graph's static input), the K steps run as one replay of the
+K-step graph (K = 1: the one-step graph) and their losses stay stacked on
+the device, and one copy brings the K losses back when the block is
+logged.  Intervals must be multiples of K.  As in JAX, a block of K > 1
+steps returns its losses only (no per-split aux to print at eval).
 
 Eval computes the test bpd and, with `test_coding`, compresses and
 decompresses every eval batch for real through `FlowCodec` (on the card:
@@ -25,7 +33,9 @@ ranks' local batches in rank order (JAX's multi-process meaning); an
 unsharded loader yields the global batch on every rank, which takes its
 rows (JAX's single-controller meaning).  Rank 0 alone writes checkpoints
 and metrics (the parameters are equal on every rank).  With one rank,
-`use_mesh` runs the plain step, as in the JAX package.
+`use_mesh` runs the plain step, as in the JAX package.  Steps over a
+gloo mesh run eagerly (`parallel.sharding.graphs_allowed`: gloo stages
+every collective through the host), and the trainer says so.
 
 The trainer runs on the card unless the caller passes device="cpu".
 Checkpoints hold {params, opt_state, step}; a resume whose step is not a
@@ -51,7 +61,9 @@ from ..ops.dlogistic import dlogistic_sample
 from ..parallel.flow_codec import ShardedFlowCodec
 from ..parallel.sharding import (
     eval_batch,
+    flow_nll,
     global_mean,
+    graphs_allowed,
     is_lead,
     local_batch,
     replicate,
@@ -59,12 +71,91 @@ from ..parallel.sharding import (
     trainer_mesh,
 )
 from ..registry import DATALOADERS, TRAINERS, build
+from ..utils.graphs import GraphedStep, optimizer_step
 from ..utils.profiling import PhaseTimer, device_peak_tflops, fence, step_flops
 from .checkpoint import restore_train_state, save_checkpoint
 from .metrics import MetricsWriter, NullWriter
 from .optim import build_optimizer
 
 LN2 = math.log(2.0)
+
+
+def flow_loss(cfg: FlowCfg, latents, means, logscales):
+    """(mean NLL in nats/dim, aux) of a flow's outputs: aux holds the
+    per-split bpd and each latent's max and min on the integer grid."""
+    lp, per_split = log_likelihood(cfg, latents, means, logscales)
+    aux = {
+        "per_split_bpd": torch.stack([-s.mean() / LN2 for s in per_split]),
+        "max_z": torch.stack([z.max() * 2 ** cfg.nbits for z in latents]),
+        "min_z": torch.stack([z.min() * 2 ** cfg.nbits for z in latents]),
+    }
+    return -lp.mean(), aux
+
+
+def make_forward(model: IDFlow, conditional: bool = False) -> GraphedStep:
+    """forward(batch, cond=None) -> the model's (latents, means,
+    logscales), without gradients; one graph replay per call on the
+    card."""
+
+    @torch.no_grad()
+    def forward(batch, cond=None):
+        return model(batch, cond if conditional else None)
+
+    return GraphedStep(forward, model.device)
+
+
+def make_train_step(model: IDFlow, optimizer, conditional: bool = False,
+                    mesh=None):
+    """(train_step, eval_step).  train_step(batch, cond=None) makes one
+    update of the model and the optimizer in place (torch's counterpart of
+    JAX's donation) and returns (loss, aux) on the device; eval_step(batch,
+    cond=None) gives (loss, aux) without an update, through
+    `make_forward`.  With `mesh` the step takes this rank's shard of the
+    global batch (with its cond) and returns the global mean loss and this
+    rank's aux."""
+    cfg = model.cfg
+    forward = make_forward(model, conditional)
+
+    def body(batch, cond=None):
+        loss, aux = flow_loss(cfg, *model(batch,
+                                          cond if conditional else None))
+        loss = sharded_update(loss, optimizer, mesh, optimizer.lrs(1)[0])
+        return loss, {k: v.detach() for k, v in aux.items()}
+
+    def eval_step(batch, cond=None):
+        return flow_loss(cfg, *forward(batch, cond))
+
+    train_step = optimizer_step(body, optimizer, model.device,
+                                graphs=graphs_allowed(mesh))
+    return train_step, eval_step
+
+
+def make_multi_train_step(model: IDFlow, optimizer, length: int,
+                          conditional: bool = False,
+                          mesh=None) -> GraphedStep:
+    """multi(batches [length, B, H, W, C], conds=None) -> losses [length]:
+    `length` train steps as one graph (JAX's lax.scan over the step), the
+    j-th update at the j-th of the block's learning rates."""
+
+    def body(batches, conds=None):
+        lrs = optimizer.lrs(length)
+        return torch.stack([
+            sharded_update(flow_nll(model, batches[j],
+                                    None if conds is None else conds[j],
+                                    conditional),
+                           optimizer, mesh, lrs[j])
+            for j in range(length)])
+
+    return optimizer_step(body, optimizer, model.device, length,
+                          graphs=graphs_allowed(mesh))
+
+
+def eager_rule(trainer, mesh) -> None:
+    """Print the one line that says a trainer on the card steps eagerly
+    by the rule fixed at its construction (a gloo mesh)."""
+    if trainer.device.type == "cuda" and not graphs_allowed(mesh):
+        print(f"{type(trainer).__name__}: graphs false: eager steps over "
+              f"a {mesh.backend} mesh (collectives staged through the host)")
 
 
 def rank0_writer(writer_path: str, mesh):
@@ -155,6 +246,15 @@ class Trainer:
                       f"(steps_per_dispatch={K} blocks)")
         if self.mesh is not None:
             replicate(self.model, self.mesh)
+        self.train_step, self.eval_step = make_train_step(
+            self.model, self.optimizer, mesh=self.mesh)
+        self.train_multi = None
+        if self.steps_per_dispatch > 1:
+            self.train_multi = make_multi_train_step(
+                self.model, self.optimizer, self.steps_per_dispatch,
+                mesh=self.mesh)
+        self.graphs = self.train_step.graphs
+        eager_rule(self, self.mesh)
         self.codec = FlowCodec(self.model, num_streams=self.num_streams)
         self.sharded_codec = (None if self.mesh is None
                               else ShardedFlowCodec(self.codec, self.mesh))
@@ -182,32 +282,14 @@ class Trainer:
     # -- steps ------------------------------------------------------------
 
     def loss_fn(self, batch: torch.Tensor):
-        """(mean NLL in nats/dim, aux) of an NHWC batch on the device."""
-        cfg = self.cfg
-        latents, means, logscales = self.model(batch)
-        lp, per_split = log_likelihood(cfg, latents, means, logscales)
-        loss = -lp.mean()
-        aux = {
-            "per_split_bpd": torch.stack([-s.mean() / LN2
-                                          for s in per_split]),
-            "max_z": torch.stack([z.max() * 2 ** cfg.nbits
-                                  for z in latents]),
-            "min_z": torch.stack([z.min() * 2 ** cfg.nbits
-                                  for z in latents]),
-        }
-        return loss, aux
+        """(mean NLL in nats/dim, aux) of an NHWC batch on the device, with
+        gradients (the train step's loss, run eagerly)."""
+        return flow_loss(self.cfg, *self.model(batch))
 
-    @torch.no_grad()
-    def eval_step(self, batch: torch.Tensor):
-        return self.loss_fn(batch)
-
-    def train_step(self, batch: torch.Tensor):
-        """One update; returns (loss, aux) on the device, no host sync
-        (over a mesh: this rank's shard, the global mean loss and this
-        rank's aux)."""
-        loss, aux = self.loss_fn(batch)
-        aux = {k: v.detach() for k, v in aux.items()}
-        return sharded_update(loss, self.optimizer, self.mesh), aux
+    # train_step(batch) and eval_step(batch) are make_train_step's (set in
+    # __init__): one update returning (loss, aux) on the device, no host
+    # sync (over a mesh: this rank's shard, the global mean loss and this
+    # rank's aux); (loss, aux) without an update
 
     def _global_aux(self, aux):
         """The last step's aux over the global batch."""
@@ -218,23 +300,29 @@ class Trainer:
                 "min_z": self.mesh.all_reduce(aux["min_z"], "min")}
 
     def train_block(self, batches: torch.Tensor):
-        """len(batches) steps, one per batch of a [K, B, H, W, C] block;
-        returns (the K losses stacked, the last step's aux), on the device,
-        with no host sync."""
-        out = [self.train_step(b) for b in batches]
-        return torch.stack([loss for loss, _ in out]), out[-1][1]
+        """One step per batch of a [K, B, H, W, C] block, as one replay of
+        the K-step graph; returns (the K losses stacked, the step's aux
+        where K = 1, else None), on the device, with no host sync."""
+        if self.train_multi is None:
+            loss, aux = self.train_step(batches[0])
+            return loss[None], aux
+        return self.train_multi(batches), None
 
     def next_block(self, K: int) -> torch.Tensor:
         """K train batches as one [K, B, H, W, C] tensor on the device, in
-        one copy (over a mesh: this rank's part of each)."""
+        one copy (over a mesh: this rank's part of each), into the K-step
+        graph's static input where it has one."""
         batches = [np.asarray(next(self.trainloader)) for _ in range(K)]
         if self.mesh is not None:
             batches = [local_batch(b, self.trainloader, self.mesh)
                        for b in batches]
         host = torch.from_numpy(np.stack(batches))
-        if self.device.type == "cuda":
-            return host.pin_memory().to(self.device, non_blocking=True)
-        return host.to(self.device)
+        if self.device.type != "cuda":
+            return host.to(self.device)
+        dst = (self.train_multi.static_input(0, host)
+               if self.train_multi is not None
+               else torch.empty(host.shape, device=self.device))
+        return dst.copy_(host.pin_memory(), non_blocking=True)
 
     # -- eval -------------------------------------------------------------
 
@@ -254,7 +342,10 @@ class Trainer:
             batch = self._to_device(host)
             part = batch if local is None else self._to_device(local)
             if not warm:
-                # cuDNN handles and the allocator, outside the timed phase
+                # cuDNN handles, the allocator and, on the card, the
+                # forward's eager first call and capture, outside the timed
+                # phase
+                self.eval_step(part)
                 self.eval_step(part)
                 fence(self.device)
                 warm = True
@@ -371,12 +462,13 @@ class Trainer:
                 last_sync = now
 
             if self._at_interval(self.evaluate_interval):
-                aux = self._global_aux(aux)
-                for i, (mx, mn, sb) in enumerate(zip(
-                        *(aux[k].cpu().numpy()
-                          for k in ("max_z", "min_z", "per_split_bpd")))):
-                    print(f"split_id: {i} , max_z : {mx} , min_z : {mn} "
-                          f", bpd_for_split : {sb}")
+                if aux is not None:  # blocks of K > 1 carry losses only
+                    aux = self._global_aux(aux)
+                    for i, (mx, mn, sb) in enumerate(zip(
+                            *(aux[k].cpu().numpy()
+                              for k in ("max_z", "min_z", "per_split_bpd")))):
+                        print(f"split_id: {i} , max_z : {mx} , min_z : {mn} "
+                              f", bpd_for_split : {sb}")
                 ev = self.evaluate()
                 self.writer.add_scalar("test bpd", ev["test_bpd"], self.step)
                 if self.test_coding:

@@ -14,6 +14,11 @@ batch and checkpoint conventions) each step is data-parallel and eval
 coding goes through `ShardedTwoLevelCodec` when the eval batch divides
 over the ranks.
 
+A training step is one `utils.graphs.GraphedStep`: on the card it is
+captured as a CUDA graph at its second call (the fine flow's
+recomputation included) and replayed after; over a gloo mesh it runs
+eagerly (`parallel.sharding.graphs_allowed`).
+
 The trainer runs on the card unless the caller passes device="cpu".
 """
 
@@ -25,6 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..codec.interleaved import to_device
 from ..convert import twolevel_params_from_flax
 from ..data import loader as _loader  # noqa: F401  (registers loaders)
 from ..models.config import latent_shapes
@@ -36,6 +42,7 @@ from ..parallel.full_codecs import ShardedTwoLevelCodec
 from ..parallel.sharding import (
     eval_batch,
     global_mean,
+    graphs_allowed,
     is_lead,
     local_batch,
     replicate,
@@ -43,10 +50,11 @@ from ..parallel.sharding import (
     trainer_mesh,
 )
 from ..registry import DATALOADERS, TRAINERS, build
+from ..utils.graphs import optimizer_step
 from ..utils.profiling import StepClock
 from .checkpoint import restore_train_state, save_checkpoint
 from .optim import build_optimizer
-from .trainer import at_interval, rank0_writer
+from .trainer import at_interval, eager_rule, rank0_writer
 
 LN2 = math.log(2.0)
 
@@ -99,6 +107,11 @@ class TwoLevelTrainer:
             self.restore(self.load_path)
         if self.mesh is not None:
             replicate(self.model, self.mesh)
+        self.train_step = optimizer_step(self._train_body, self.optimizer,
+                                         self.device,
+                                         graphs=graphs_allowed(self.mesh))
+        self.graphs = self.train_step.graphs
+        eager_rule(self, self.mesh)
         self.sample_gen = torch.Generator(device=self.device).manual_seed(
             seed + 1)
         self.test_coding = test_coding
@@ -133,12 +146,14 @@ class TwoLevelTrainer:
         loss_f = -log_likelihood(cfg.fine, fl, fm, fs)[0].mean()
         return loss_r + loss_f, torch.stack([loss_r, loss_f])
 
-    def train_step(self, batch: torch.Tensor):
-        """One update; returns (loss, [rough, fine] losses) on the device,
-        no host sync (over a mesh: this rank's shard, the global loss and
-        this rank's [rough, fine])."""
+    def _train_body(self, batch: torch.Tensor):
+        """The body of `train_step(batch)`: one update; returns (loss,
+        [rough, fine] losses) on the device, no host sync (over a mesh:
+        this rank's shard, the global loss and this rank's [rough,
+        fine])."""
         loss, aux = self.loss_fn(batch)
-        return sharded_update(loss, self.optimizer, self.mesh), aux.detach()
+        return sharded_update(loss, self.optimizer, self.mesh,
+                              self.optimizer.lrs(1)[0]), aux.detach()
 
     @torch.no_grad()
     def eval_step(self, batch: torch.Tensor):
@@ -212,8 +227,8 @@ class TwoLevelTrainer:
             host = np.asarray(next(self.trainloader))
             if self.mesh is not None:
                 host = local_batch(host, self.trainloader, self.mesh)
-            batch = torch.from_numpy(np.ascontiguousarray(host)).to(
-                self.device)
+            batch = to_device(torch.from_numpy(np.ascontiguousarray(host)),
+                              self.device)
             _, aux = self.train_step(batch)
             if self.step % self.log_every == 0:
                 # the loss fetch syncs the host, at the log cadence only

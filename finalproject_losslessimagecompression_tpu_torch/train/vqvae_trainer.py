@@ -10,6 +10,14 @@ fetched only at the `log_every` cadence, where the losses are fetched too.
 The usage counts are trainer state: checkpoints hold {params, opt_state,
 step, counts}, so a resume restores them.
 
+A training step (`update`: the update, the usage counts and the dead-code
+reinit) is one `utils.graphs.GraphedStep`: on the card it is captured as
+a CUDA graph at its second call and replayed after, with the counts, the
+codebook, the BatchNorm running averages and the replaced-codeword count
+updated in place; `train_step` alone (the update without the counts) is
+one too.  Over a gloo mesh the steps run eagerly
+(`parallel.sharding.graphs_allowed`).
+
 With `use_mesh: true` over several ranks (see train/trainer.py for the
 batch and checkpoint conventions) the step reduces over the global batch
 as the JAX package's sharded step does: the BatchNorm batch moments are
@@ -29,6 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..codec.interleaved import to_device
 from ..convert import vqvae_params_from_flax
 from ..data import loader as _loader  # noqa: F401  (registers loaders)
 from ..models.idflow import resolve_device
@@ -38,6 +47,7 @@ from ..ops import distributions as _distributions  # noqa: F401  (registers)
 from ..parallel.sharding import (
     eval_batch,
     global_mean,
+    graphs_allowed,
     is_lead,
     local_batch,
     replicate,
@@ -45,10 +55,11 @@ from ..parallel.sharding import (
     trainer_mesh,
 )
 from ..registry import DATALOADERS, DISTRIBUTIONS, TRAINERS, build
+from ..utils.graphs import optimizer_step
 from ..utils.profiling import StepClock
 from .checkpoint import restore_train_state, save_checkpoint
 from .optim import build_optimizer
-from .trainer import at_interval, rank0_writer
+from .trainer import at_interval, eager_rule, rank0_writer
 
 LN2 = math.log(2.0)
 
@@ -113,6 +124,13 @@ class VQVAETrainer:
             for m in self.model.modules():
                 if isinstance(m, BatchNorm):
                     m.sum_over_ranks = self.mesh.all_reduce_grad
+        graphs = graphs_allowed(self.mesh)
+        self.train_step = optimizer_step(self._train_body, self.optimizer,
+                                         self.device, graphs=graphs)
+        self.update_step = optimizer_step(self._update_body, self.optimizer,
+                                          self.device, graphs=graphs)
+        self.graphs = self.update_step.graphs
+        eager_rule(self, self.mesh)
 
     # -- checkpointing ----------------------------------------------------
 
@@ -129,8 +147,7 @@ class VQVAETrainer:
         st = restore_train_state(path, self.model, self.optimizer,
                                  vqvae_params_from_flax)
         self.step = int(st["step"])
-        self.counts = torch.as_tensor(st["counts"], dtype=self.counts.dtype,
-                                      device=self.device)
+        self.counts.copy_(torch.as_tensor(st["counts"]))
 
     # -- steps ------------------------------------------------------------
 
@@ -142,13 +159,15 @@ class VQVAETrainer:
         recloss = -self.dist.log_prob(batch, out * 0.5 + 0.5).mean()
         return self.alpha * recloss + vqloss, recloss, vqloss, counts, flat
 
-    def train_step(self, batch: torch.Tensor):
-        """One update; returns (loss, recloss, vqloss, counts, flat) on the
-        device, no host sync.  Over a mesh: on this rank's shard, with the
-        global mean loss, the global usage counts and the global batch's
-        encoder outputs (recloss and vqloss stay this rank's)."""
+    def _train_body(self, batch: torch.Tensor):
+        """The body of `train_step(batch)`: one update; returns (loss,
+        recloss, vqloss, counts, flat) on the device, no host sync.  Over a
+        mesh: on this rank's shard, with the global mean loss, the global
+        usage counts and the global batch's encoder outputs (recloss and
+        vqloss stay this rank's)."""
         loss, recloss, vqloss, counts, flat = self.loss_fn(batch)
-        loss = sharded_update(loss, self.optimizer, self.mesh)
+        loss = sharded_update(loss, self.optimizer, self.mesh,
+                              self.optimizer.lrs(1)[0])
         counts = global_mean(counts, self.mesh)
         if self.mesh is not None:
             flat = self.mesh.all_gather(flat.detach()).reshape(
@@ -156,31 +175,36 @@ class VQVAETrainer:
         return (loss, recloss.detach(), vqloss.detach(), counts,
                 flat.detach())
 
-    def update(self, host: np.ndarray):
-        """One training step on a loader batch (over a mesh, this rank's
-        part of it): the update, the usage counts and the dead-code reinit.
-        Returns (loss, recloss, vqloss, did, nrep) on the device (did and
-        nrep None without reinit), no host sync."""
-        if self.mesh is not None:
-            host = local_batch(host, self.trainloader, self.mesh)
-        batch = torch.from_numpy(np.ascontiguousarray(host)).to(self.device)
-        loss, recloss, vqloss, counts, flat = self.train_step(batch)
-        self.counts = self.counts + counts
+    def _update_body(self, batch: torch.Tensor):
+        loss, recloss, vqloss, counts, flat = self._train_body(batch)
+        self.counts.add_(counts)
         did = nrep = None
         if self.reinit_interval:
             did, nrep = self.reinit(flat)
         return loss, recloss, vqloss, did, nrep
 
+    def update(self, host: np.ndarray):
+        """One training step on a loader batch (over a mesh, this rank's
+        part of it): the update, the usage counts and the dead-code reinit,
+        one graph replay on the card.  Returns (loss, recloss, vqloss, did,
+        nrep) on the device (did and nrep None without reinit), no host
+        sync."""
+        if self.mesh is not None:
+            host = local_batch(host, self.trainloader, self.mesh)
+        return self.update_step(to_device(
+            torch.from_numpy(np.ascontiguousarray(host)), self.device))
+
     @torch.no_grad()
     def reinit(self, flat: torch.Tensor):
         """Dead-code reinitialisation after a step (`vq_reinit` on the
-        accumulated counts and the step's encoder vectors); returns (did,
-        replaced) as device scalars."""
+        accumulated counts and the step's encoder vectors), in place;
+        returns (did, replaced) as device scalars."""
         cb = self.model.vq.codebook
-        new_cb, self.counts, did, nrep = vq_reinit(
+        new_cb, new_counts, did, nrep = vq_reinit(
             cb, self.counts, flat, float(self.reinit_interval),
             float(self.threshold))
         cb.copy_(new_cb)
+        self.counts.copy_(new_counts)
         self.replaced += torch.where(did, nrep, 0)
         return did, nrep
 
