@@ -225,10 +225,33 @@ Phases, each printing one JSON line:
             shapes then go through `paths`; files under
             logs/chip_smoke_scaleout, removed at the end.
 
+18. demo  the port's demo harnesses (`demo/`) on configs/synthetic64.yaml
+            at full width (nflows 8, nsplit 3, DenseBlocks 256 x 6, batch
+            32, K = 4): cli.train for 200 captured steps (the training set
+            cut to 2048 of its 8192 images; the phase prints the cut),
+            eval with real coding at step 200 (0 errors) and the train bpd
+            over steps 181-200 beside the JAX package's run
+            (results/synthetic64_metrics.jsonl); then demo.filecodec_demo
+            with that checkpoint over the in-domain corpus (arrays) and
+            demo/corpus/ with PIL hidden (its PNGs through the package's
+            PNG reader, held against PIL's decode where PIL imports; the
+            stored escape stored-zlib): cold and warm one-shot commands
+            and a serve session, every file bit-exact, each command's
+            launches; then
+            demo.stress at 50M symbols (S = 8192, k = 6112): host in the
+            loop, kernel and plain paths bit-exact, the kernels' container
+            equal to the plain coder's, the decode windowed, coded bits
+            per symbol within 0.001 of results/stress_50m_r05.json; then
+            the three kernels against their plain versions on that
+            message (each plain version run once), a row of the kernels
+            line, and `paths` at the path's other launch shapes.  Files
+            under logs/chip_smoke_demo, removed at the end.
+
 Then the `kernels` summary line (`launches_fused`: phase 4b's counts by
 codec and case; `launches_profiled`: the launches the profiler recorded
 on the device in the profiled passes of phases 4, 4b, 6, 7 and 16;
-`launches_scaleout`: phase 17's counts by part, rank and direction), the
+`launches_scaleout`: phase 17's counts by part, rank and direction;
+`launches_demo`: phase 18's by command), the
 nvidia-smi line, and last {"ok": true, "device": {...}}.  Any failure
 raises and exits non-zero; with no CUDA device, or outside the
 repository, it exits non-zero and prints no result.  `--quick` runs
@@ -448,7 +471,24 @@ def random_seeds(shape, seed: int):
                          dtype=torch.int64)
 
 
-def kernel_case(S: int, k: int, seeded: bool, seed: int, depth_ns):
+def cuda_once(fn):
+    """(fn's result, its device time in ms) of one call (CUDA events)."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def kernel_case(S: int, k: int, seeded: bool, seed: int, depth_ns,
+                inputs=None, plain_once: bool = False):
+    """The three kernels against their plain versions on one [k, S]
+    message: `clamped_message(S, k, seed)`, or `inputs` (window-clamped
+    bins, means, scales, lower bounds).  With `plain_once` each plain
+    version runs once, its checking call timed (the 50M-symbol message,
+    whose plain decode takes tens of seconds)."""
     from finalproject_losslessimagecompression_tpu_torch.codec import (
         interleaved as IL,
     )
@@ -465,7 +505,15 @@ def kernel_case(S: int, k: int, seeded: bool, seed: int, depth_ns):
 
     dev = torch.device("cuda")
     n = S * k
-    vc, m, s, lower = clamped_message(S, k, seed)
+    vc, m, s, lower = (clamped_message(S, k, seed) if inputs is None
+                       else inputs)
+    plain = {}
+
+    def checked(name, fn):
+        if not plain_once:
+            return fn()
+        out, plain[name] = cuda_once(fn)
+        return out
     seeds = random_seeds((S,), seed) if seeded else None
 
     # the kernels' CDF against torch's on the card, at the coded bins and
@@ -483,7 +531,7 @@ def kernel_case(S: int, k: int, seeded: bool, seed: int, depth_ns):
         f"evaluations (S={S}, k={k})")
 
     rk = rans_cdf_prepass(vc, m, s, lower)
-    rp = IL.cdf_prepass_plain(vc, m, s, lower)
+    rp = checked("prepass", lambda: IL.cdf_prepass_plain(vc, m, s, lower))
     pre_err = max_err([(rk, rp)])
     assert pre_err == 0, f"prepass kernel differs from plain (S={S}, k={k})"
     c_start, freq, _ = IL.unpack_prepass(rk)
@@ -491,7 +539,8 @@ def kernel_case(S: int, k: int, seeded: bool, seed: int, depth_ns):
         (c_start, freq), IL.cdf_tiles(vc, m, s, lower)))
 
     wk, fk, hk, lk = rans_encode(vc, m, s, lower, seeds)
-    wp, fp, hp, lp = IL.encode_plain(vc, m, s, lower, seeds)
+    wp, fp, hp, lp = checked(
+        "encode", lambda: IL.encode_plain(vc, m, s, lower, seeds))
     enc_err = max_err([(wk, wp), (fk, fp), (hk, hp), (lk, lp)])
     assert enc_err == 0, f"encode kernel differs from plain (S={S}, k={k})"
 
@@ -501,25 +550,29 @@ def kernel_case(S: int, k: int, seeded: bool, seed: int, depth_ns):
     assert bool((h2 == 1).all()), "decode kernel: hi did not return to 1"
     want_lo = seeds if seeded else torch.zeros_like(l2)
     assert torch.equal(l2, want_lo), "decode kernel: lo did not return"
-    vp, h3, l3 = IL.decode_plain(buf, total, hk, lk, m, s, lower)
+    vp, h3, l3 = checked(
+        "decode", lambda: IL.decode_plain(buf, total, hk, lk, m, s, lower))
     dec_err = max_err([(vk, vp), (h2, h3), (l2, l3)])
     assert dec_err == 0, f"decode kernel differs from plain (S={S})"
+    del rp, wp, fp, hp, lp, vp, h3, l3
 
     # kernels: device time from the profiler; plain versions (hundreds of
     # small torch kernels each) with CUDA events around the calls
     pre_ms = device_ms(lambda: rans_cdf_prepass(vc, m, s, lower), 20,
                        ["rans_cdf_prepass_kernel"])
-    pre_plain_ms = cuda_ms(lambda: IL.cdf_prepass_plain(vc, m, s, lower), 5)
+    pre_plain_ms = plain.get("prepass") or cuda_ms(
+        lambda: IL.cdf_prepass_plain(vc, m, s, lower), 5)
     enc_ms = device_ms(lambda: rans_encode(vc, m, s, lower, seeds), 20,
                        ENC)
-    enc_plain_ms = cuda_ms(lambda: IL.encode_plain(vc, m, s, lower, seeds), 2)
+    enc_plain_ms = plain.get("encode") or cuda_ms(
+        lambda: IL.encode_plain(vc, m, s, lower, seeds), 2)
     dec_ms = device_ms(lambda: rans_decode(buf, total, hk, lk, m, s, lower),
                        20, DEC)
     # cross-check: CUDA events around back-to-back calls (the decode is
     # long enough that the host's time between launches hides in it)
     dec_event_ms = cuda_ms(
         lambda: rans_decode(buf, total, hk, lk, m, s, lower), 20)
-    dec_plain_ms = cuda_ms(
+    dec_plain_ms = plain.get("decode") or cuda_ms(
         lambda: IL.decode_plain(buf, total, hk, lk, m, s, lower), 1)
     nw = int(total)
     # bytes the function must move, each input read once and each output
@@ -1161,8 +1214,9 @@ def train_config():
     ])
 
 
-def logged(tag, log_dir=os.path.join(TRAIN_DIR, "log")):
-    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+def logged(tag, log_dir=os.path.join(TRAIN_DIR, "log"),
+           name="metrics.jsonl"):
+    with open(os.path.join(log_dir, name)) as f:
         recs = [json.loads(line) for line in f]
     return [(r["step"], r["value"]) for r in recs if r["tag"] == tag]
 
@@ -3039,6 +3093,271 @@ def phase_large(depth_ns, n: int = 8 * 2**20):
 
 
 # ---------------------------------------------------------------------------
+# phase 18: the demo harnesses
+# ---------------------------------------------------------------------------
+
+DEMO_CONFIG = "configs/synthetic64.yaml"
+DEMO_DIR = os.path.join(ROOT, "logs", "chip_smoke_demo")
+DEMO_STEPS = 200
+DEMO_TRAIN_LENGTH = 2048  # of the config's 8192 training images
+STRESS_N = 50_000_000
+
+
+def jax_reference():
+    """The JAX package's recorded numbers this phase stands beside: its
+    synthetic64 run's train bpd over steps 181-200
+    (results/synthetic64_metrics.jsonl) and the 50M stress's coded bits
+    per symbol (results/stress_50m_r05.json); bpd and bytes do not depend
+    on the hardware."""
+    bpd = [v for step, v in logged("train bpd", os.path.join(ROOT, "results"),
+                                   "synthetic64_metrics.jsonl")
+           if DEMO_STEPS - 19 <= step <= DEMO_STEPS]
+    with open(os.path.join(ROOT, "results", "stress_50m_r05.json")) as f:
+        stress_bits = json.load(f)["coded_bits_per_sym"]
+    return {"train_bpd_181_200": sum(bpd) / len(bpd),
+            "stress_coded_bits_per_sym": stress_bits}
+
+
+@contextlib.contextmanager
+def counted_command(wrappers, launches, name):
+    """Launch counts of one demo command: zeroed just before it, read just
+    after it into launches[name]."""
+    reset_launches(wrappers)
+    yield
+    launches[name] = launch_counts(wrappers)
+
+
+def demo_train(wrappers, ref):
+    """cli.train on configs/synthetic64.yaml at full width for DEMO_STEPS
+    captured steps (the training set cut to DEMO_TRAIN_LENGTH images),
+    evaluated with real coding and saved at the last step."""
+    from finalproject_losslessimagecompression_tpu_torch.cli import (
+        train as cli_train,
+    )
+
+    ckpt = os.path.join(DEMO_DIR, "synthetic64.ckpt")
+    log = os.path.join(DEMO_DIR, "log")
+    cut = {"train.train_dataloader.dataset.length": DEMO_TRAIN_LENGTH,
+           "train.max_step": DEMO_STEPS,
+           "train.evaluate_interval": DEMO_STEPS,
+           "train.save_interval": DEMO_STEPS}
+    emit({"phase": "demo_cut", "config": DEMO_CONFIG, "set": cut,
+          "why": "the training set cut from 8192 to 2048 images to save "
+                 "host time; 200 of the config's 30000 steps"})
+    argv = ["--config", os.path.join(ROOT, DEMO_CONFIG)]
+    for key, value in [*cut.items(), ("train.save_path", ckpt),
+                       ("train.writer_path", log)]:
+        argv += ["--set", f"{key}={value}"]
+    torch.cuda.synchronize()
+    reset_launches(wrappers)
+    t0 = time.time()
+    t = cli_train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = launch_counts(wrappers)
+    bpd = [v for step, v in logged("train bpd", log)
+           if DEMO_STEPS - 19 <= step <= DEMO_STEPS]
+    first = [v for step, v in logged("train bpd", log) if step <= 20]
+    at = {tag: dict(logged(tag, log)).get(DEMO_STEPS)
+          for tag in ("test bpd", "real bpd", "coding errors")}
+    step_s = [v for _, v in logged("step time s", log)]
+    res = {"phase": "demo_train", "steps": t.step, "wall_s": wall,
+           "train_bpd_181_200": sum(bpd) / len(bpd),
+           "jax_train_bpd_181_200": ref["train_bpd_181_200"],
+           "train_bpd_17_20": sum(first) / len(first),
+           "test_bpd": at["test bpd"], "real_bpd": at["real bpd"],
+           "coding_errors": at["coding errors"],
+           "step_s_median": statistics.median(step_s),
+           "captures": t.train_multi.captures, "launches_eval": launches}
+    emit(res)
+    assert t.step == DEMO_STEPS and t.graphs
+    assert all(v > 0 for v in launches.values()), launches
+    assert res["coding_errors"] == 0, "demo training: coding errors"
+    assert math.isfinite(res["real_bpd"]) and math.isfinite(res["test_bpd"])
+    assert res["train_bpd_181_200"] < res["train_bpd_17_20"], \
+        "demo training: the train bpd did not fall"
+    return res, ckpt, t.codec
+
+
+@contextlib.contextmanager
+def without_pil():
+    """PIL hidden from imports, as on a machine without it: the codec CLI
+    then reads PNGs through the package's reader (utils/png.py) and its
+    stored escape is stored-zlib."""
+    names = ("PIL", "PIL.Image")
+    saved = {n: sys.modules[n] for n in names if n in sys.modules}
+    for n in names:
+        sys.modules[n] = None
+    try:
+        yield
+    finally:
+        for n in names:
+            del sys.modules[n]
+        sys.modules.update(saved)
+
+
+def png_reader_check(corpus):
+    """The package's PNG reader against PIL (where it imports) on every
+    PNG of the corpus: exact, or None without PIL."""
+    from finalproject_losslessimagecompression_tpu_torch.utils.png import (
+        as_rgb,
+        read_png,
+    )
+
+    try:
+        from PIL import Image
+    except ImportError:
+        return None
+    paths = sorted(os.path.join(corpus, f) for f in os.listdir(corpus)
+                   if f.endswith(".png"))
+    return all(np.array_equal(as_rgb(read_png(p)),
+                              np.asarray(Image.open(p).convert("RGB")))
+               for p in paths)
+
+
+def demo_filecodec(wrappers, ckpt, corpus, name, hide_pil=False):
+    """demo.filecodec_demo over a corpus with the trained checkpoint, each
+    command's launches counted; with `hide_pil` PNGs are read through the
+    package's own reader."""
+    from finalproject_losslessimagecompression_tpu_torch.demo import (
+        filecodec_demo,
+    )
+
+    launches = {}
+    with without_pil() if hide_pil else contextlib.nullcontext():
+        out = filecodec_demo.run(
+            os.path.join(ROOT, DEMO_CONFIG), ckpt, corpus,
+            workdir=os.path.join(DEMO_DIR, name),
+            around=lambda c: counted_command(wrappers, launches, c))
+    res = {"phase": f"demo_filecodec_{name}", "pil_hidden": hide_pil,
+           **{k: v for k, v in out.items() if k != "files"},
+           "files": {r["file"]: {k: r[k] for k in (
+               "bit_exact", "lic_bytes", "png_bytes", "gzip9_bytes")}
+               for r in out["files"]},
+           "launches": launches}
+    emit(res)
+    assert out["all_bit_exact"], f"demo file codec ({name}) not bit-exact"
+    # every compress command launches the encode kernels; a decompress
+    # launches the decode only for flow containers (stored files: none)
+    for c, counts in launches.items():
+        if "decompress" not in c:
+            assert all(counts[k] > 0 for k in ENC), (name, c, counts)
+    return res
+
+
+def demo_stress(wrappers, ref):
+    """demo.stress at the reference's 50M symbols, one timed run per
+    device path."""
+    from finalproject_losslessimagecompression_tpu_torch.demo import stress
+
+    reset_launches(wrappers)
+    out = stress.run(n=STRESS_N, iters=1)
+    launches = launch_counts(wrappers)
+    res = {"phase": "demo_stress", **out,
+           "jax_coded_bits_per_sym": ref["stress_coded_bits_per_sym"],
+           "launches": launches}
+    emit(res)
+    assert out["bit_exact"] and out["kernel_bit_exact"] \
+        and out["plain_bit_exact"] and out["kernel_equals_plain"]
+    assert out["decode_windowed"] and out["steps"] == 6112
+    assert abs(out["coded_bits_per_sym"]
+               - ref["stress_coded_bits_per_sym"]) <= 1e-3, \
+        "50M stress: coded size off the JAX package's"
+    assert all(v == 2 for v in launches.values()), launches
+    return res
+
+
+def stress_kernel_row(depth_ns):
+    """The three kernels against their plain versions on the stress's own
+    50M-symbol message (S = 8192, k = 6112), each plain version run
+    once."""
+    from finalproject_losslessimagecompression_tpu_torch.codec import (
+        interleaved as IL,
+    )
+    from finalproject_losslessimagecompression_tpu_torch.demo import stress
+
+    S = 8192
+    k = IL._plan_steps(STRESS_N, S)
+    v, m, s = (torch.from_numpy(a).cuda() for a in stress.draw(STRESS_N))
+    vc, mk, sk, lower, *_ = IL._prepare_encode(v, m, s, S, k)
+    del v, m, s
+    return kernel_case(S, k, False, 6, depth_ns, inputs=(vc, mk, sk, lower),
+                       plain_once=True)
+
+
+def phase_demo(wrappers, depth_ns):
+    """A model trained by the port coding the committed corpora, and the
+    50M-symbol coder stress (files under logs/chip_smoke_demo, removed at
+    the end)."""
+    import gc
+
+    t0 = time.time()
+    shutil.rmtree(DEMO_DIR, ignore_errors=True)
+    ref = jax_reference()
+    train, ckpt, codec = demo_train(wrappers, ref)
+    corpora = {
+        "indomain": demo_filecodec(wrappers, ckpt, "indomain", "indomain"),
+        "corpus": demo_filecodec(wrappers, ckpt,
+                                 os.path.join(ROOT, "demo", "corpus"),
+                                 "corpus", hide_pil=True),
+    }
+    reader = png_reader_check(os.path.join(ROOT, "demo", "corpus"))
+    emit({"phase": "demo_png_reader", "equals_pil": reader})
+    assert reader is not False, "PNG reader differs from PIL"
+    gc.collect()
+    torch.cuda.empty_cache()
+    stress_res = demo_stress(wrappers, ref)
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = stress_kernel_row(depth_ns)
+    shutil.rmtree(DEMO_DIR, ignore_errors=True)
+    # every kernel of the path launched: in the training eval, the file
+    # commands (a decompress of stored-escape files alone launches none)
+    # and the stress
+    for name in wrappers:
+        total = (train["launches_eval"][name] + stress_res["launches"][name]
+                 + sum(c[name] for r in corpora.values()
+                       for c in r["launches"].values()))
+        assert total > 0, f"demo path: {name} never launched"
+    # the launch shapes of the path: eval batches of 8, the CLI's tile
+    # chunks (the corpora's sizes; demo/corpus/ holds their transposes),
+    # and the stress's own, held by `row`
+    from finalproject_losslessimagecompression_tpu_torch.cli.codec import (
+        _chunk_sizes,
+    )
+    from finalproject_losslessimagecompression_tpu_torch.demo.make_corpus import (  # noqa: E501
+        SIZES,
+    )
+
+    H, W = codec.cfg.H, codec.cfg.W
+    chunks = {b for _, (h, w) in SIZES
+              for b in _chunk_sizes(-(-h // H) * -(-w // W))}
+    shapes = coded_shapes(codec, sorted({8} | chunks))
+    del codec
+    res = {"phase": "demo", "wall_s": time.time() - t0,
+           "train_bpd_181_200": train["train_bpd_181_200"],
+           "jax_train_bpd_181_200": ref["train_bpd_181_200"],
+           "test_bpd": train["test_bpd"], "real_bpd": train["real_bpd"],
+           "coding_errors": train["coding_errors"],
+           "lic_vs_png": {n: c["lic_vs_png"] for n, c in corpora.items()},
+           "all_bit_exact": {n: c["all_bit_exact"]
+                             for n, c in corpora.items()},
+           "stress_bit_exact": {
+               "host": stress_res["bit_exact"],
+               "kernel": stress_res["kernel_bit_exact"],
+               "plain": stress_res["plain_bit_exact"]},
+           "coded_bits_per_sym": stress_res["coded_bits_per_sym"],
+           "jax_coded_bits_per_sym": ref["stress_coded_bits_per_sym"],
+           "stress_sym_per_s": {
+               "host": stress_res["host_sym_per_s"],
+               "kernel": stress_res["kernel_device_sym_per_s"],
+               "plain": stress_res["plain_device_sym_per_s"]}}
+    emit(res)
+    return {"train": train, "corpora": corpora, "stress": stress_res,
+            "row": row, "kernel_shapes": shapes}
+
+
+# ---------------------------------------------------------------------------
 
 
 def launches_scaleout(scaleout, name):
@@ -3092,8 +3411,18 @@ def launches_profiled(e2e, fused, cli, residual, tools, name):
     return out or None
 
 
+def launches_demo(demo, name):
+    """A kernel's launch counts in phase 18, by command."""
+    out = {"train_eval": demo["train"]["launches_eval"][name]}
+    for corpus, res in demo["corpora"].items():
+        for c, counts in res["launches"].items():
+            out[f"filecodec_{corpus}_{c}"] = counts[name]
+    out["stress"] = demo["stress"]["launches"][name]
+    return out
+
+
 def kernels_line(rows, e2e, fused, train, cli, residual, pipes, tools,
-                 scaleout):
+                 scaleout, demo):
     head = [r for r in rows if r["S"] == 384 and not r["seeded"]][0]
     out = []
     for key, name, replaces, extra in (
@@ -3136,6 +3465,7 @@ def kernels_line(rows, e2e, fused, train, cli, residual, pipes, tools,
                 if tools else None),
             "launches_scaleout": (launches_scaleout(scaleout, name)
                                   if scaleout else None),
+            "launches_demo": launches_demo(demo, name) if demo else None,
             "max_abs_err": max(r[key]["max_abs_err"] for r in rows),
             "matches_plain": all(r[key]["max_abs_err"] == 0 for r in rows),
             "ms": h["ms"], "plain_ms": h["plain_ms"],
@@ -3160,6 +3490,7 @@ def main(argv) -> int:
     depth_ns = phase_depth()
     rows, _, _ = phase_kernels(depth_ns)
     e2e = fused = train = cli = residual = pipes = tools = scaleout = None
+    demo = None
     if "--quick" not in argv:
         e2e = phase_e2e()
         fused = phase_fused(kernel_wrappers())
@@ -3174,8 +3505,11 @@ def main(argv) -> int:
         tools = phase_tools(kernel_wrappers(), e2e)
         scaleout = phase_scaleout(kernel_wrappers(), train)
         path_kernels(rows, (tools["padded"], scaleout), depth_ns)
+        demo = phase_demo(kernel_wrappers(), depth_ns)
+        rows.append(demo["row"])
+        path_kernels(rows, (demo,), depth_ns)
     emit(kernels_line(rows, e2e, fused, train, cli, residual, pipes, tools,
-                      scaleout))
+                      scaleout, demo))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 """File-level compress/decompress CLI: images <-> `.lic` containers.
 
-Compress an image file (a uint8 .npy array, or PNG / anything PIL reads)
+Compress an image file (a uint8 .npy array, a PNG, or anything PIL reads)
 into a self-describing `.lic` file with a trained checkpoint, and decompress
 it back to the exact original pixels:
 
@@ -52,6 +52,10 @@ escape (`stored-png`, or `stored-zlib` for channel counts PNG does not take
 and where PIL is not installed); stored containers are model-independent
 and skip the fingerprint check.  `--no-stored-fallback` forces flow mode.
 PIL is imported only to read or write PNG files and stored-png blobs.
+Where it does not import, PNGs and stored-png blobs are read by the
+package's own reader (`utils/png.py`: 8-bit grey, grey + alpha, RGB and
+RGBA, non-interlaced) and decompressed files are written as `.npy`
+(`--ext .npy`).
 """
 
 from __future__ import annotations
@@ -297,7 +301,8 @@ def _pil_image(what: str):
 
 
 def _read_image(path: str) -> np.ndarray:
-    """-> uint8 [H, W, C]."""
+    """-> uint8 [H, W, C]: a .npy array, or an image through PIL where it
+    imports and, where not, a PNG through `utils.png`."""
     if path.endswith(".npy"):
         arr = np.load(path)
         if arr.dtype != np.uint8:
@@ -305,7 +310,20 @@ def _read_image(path: str) -> np.ndarray:
         if arr.ndim == 2:
             arr = arr[..., None]
         return arr
-    Image = _pil_image(f"reading {path}")
+    try:
+        from PIL import Image
+    except ImportError:
+        # no PIL: 8-bit PNGs through the package's own reader, converted
+        # as PIL's convert("RGB") converts them
+        if not path.lower().endswith(".png"):
+            raise SystemExit(f"reading {path} needs PIL (Pillow), which is "
+                             "not installed; use .png or .npy files") from None
+        from ..utils.png import PNGError, as_rgb, read_png
+
+        try:
+            return as_rgb(read_png(path))
+        except PNGError as err:
+            raise SystemExit(str(err)) from None
     return np.asarray(Image.open(path).convert("RGB"), np.uint8)
 
 
@@ -373,8 +391,18 @@ def _decode_stored(mode: str, blob: bytes, orig,
     if mode == "stored-png":
         import io
 
-        Image = _pil_image(f"{name}: a stored-png container")
-        a = np.asarray(Image.open(io.BytesIO(blob)), np.uint8)
+        try:
+            from PIL import Image
+        except ImportError:
+            from ..utils.png import PNGError, read_png
+
+            try:
+                a = read_png(blob)
+            except PNGError as err:
+                raise SystemExit(f"{name}: a stored-png container: "
+                                 f"{err}") from None
+        else:
+            a = np.asarray(Image.open(io.BytesIO(blob)), np.uint8)
         if a.ndim == 2:
             a = a[..., None]
         if a.shape != (H, W, C):

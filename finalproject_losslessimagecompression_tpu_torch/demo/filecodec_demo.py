@@ -1,0 +1,279 @@
+"""File-codec demo: the codec CLI (`cli.codec`) over a corpus with a trained
+checkpoint, every file checked for exact equality, and `.lic` bytes
+recorded against PNG, lossless WebP and gzip -9.
+
+    python -m finalproject_losslessimagecompression_tpu_torch.demo.filecodec_demo \\
+        --ckpt logs/synthetic64.ckpt [--config configs/synthetic64.yaml] \\
+        [--corpus indomain|natural|DIR] [--files STEM ...] [--device cpu] \\
+        [--out results/torch_h100/filecodec_indomain.json]
+
+A corpus is a directory of PNGs (read through PIL where it imports, else
+through `utils.png`), or `indomain` / `natural`: the arrays of
+`demo.make_corpus`, written as `.npy` into the work directory, whose
+`png_bytes` are the committed PNGs' sizes (`demo/corpus_<kind>/`).
+Decompressed files are written as `.npy`, which needs no PIL.
+
+Timed, as the repository's `demo/run_filecodec_demo.py` times them: a
+cold and a warm one-shot `compress` and `decompress` of the whole corpus
+through `cli.codec.main` in this process (each loads the model anew; the
+warm ones are phase-split by `cli.codec.TIMER`), then a `serve` session
+at the codec's default granularity ("fused" on the card): one warm-up
+pass, then the median of 3 passes, the marginal per-corpus cost of a
+long-running service.  Per file: `bit_exact`, `lic_bytes`, `png_bytes`,
+`webp_lossless_bytes` (null where PIL or its WebP support is missing; the
+`what` line says so) and `gzip9_bytes`.  Exits non-zero unless every file
+round-trips exactly.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import glob
+import gzip
+import io
+import json
+import os
+import statistics
+import tempfile
+import time
+
+import numpy as np
+
+from ..cli import codec as CC
+from ..models.idflow import resolve_device
+from . import device_label, write_new
+from .make_corpus import KINDS, committed_dir, write_corpus
+
+
+def corpus_files(corpus: str, workdir: str, files=None):
+    """(input paths, {path: PNG bytes}, description) of a corpus, limited
+    to the file stems in `files` where given."""
+    if corpus in KINDS:
+        paths = write_corpus(corpus, os.path.join(workdir, "corpus"),
+                             png=False)
+        ref = committed_dir(corpus)
+        png = {p: os.path.getsize(os.path.join(
+            ref, os.path.basename(p)[:-4] + ".png")) for p in paths}
+        what = (f"the {corpus} corpus (demo/corpus_{corpus}, regenerated "
+                "as arrays by demo.make_corpus)")
+    else:
+        paths = sorted(glob.glob(os.path.join(corpus, "*.png")))
+        png = {p: os.path.getsize(p) for p in paths}
+        what = f"the PNGs of {corpus}"
+    if files:
+        stems = set(files)
+        paths = [p for p in paths
+                 if os.path.splitext(os.path.basename(p))[0] in stems]
+    if not paths:
+        raise SystemExit(f"no corpus files at {corpus!r}")
+    return paths, png, what
+
+
+def _webp_bytes(arr: np.ndarray):
+    """(lossless WebP bytes, None) or (None, why not)."""
+    try:
+        from PIL import Image
+    except ImportError:
+        return None, "PIL is not installed"
+    b = io.BytesIO()
+    try:
+        Image.fromarray(arr).save(b, format="WEBP", lossless=True)
+    except (KeyError, OSError) as err:
+        return None, f"PIL cannot write WebP ({err})"
+    return b.tell(), None
+
+
+def _phases(rep):
+    return {k: {"total_s": v["total_s"], "count": v["count"]}
+            for k, v in sorted(rep.items())}
+
+
+def _granularity(pipe) -> str:
+    if hasattr(pipe, "res"):  # residual: its flow codec
+        return pipe.res.codec.granularity
+    # two-level: its rough flow's codec (both sub-flows share the mode)
+    return getattr(pipe.codec, "rough_codec", pipe.codec).granularity
+
+
+def _stem(path: str) -> str:
+    return os.path.splitext(os.path.basename(path))[0]
+
+
+def run(config: str, ckpt: str, corpus: str = "indomain", workdir=None,
+        device=None, num_streams: int = 4096, files=None,
+        around=None) -> dict:
+    """The demo's result dict.  `around(name)`, where given, is a context
+    manager entered around each CLI command (cold / warm one-shot
+    commands, the serve session's warm-up and timed passes)."""
+    device = resolve_device(device)
+    around = around or (lambda name: contextlib.nullcontext())
+    with (tempfile.TemporaryDirectory() if workdir is None
+          else contextlib.nullcontext(workdir)) as wd:
+        return _run(config, ckpt, corpus, wd, device, num_streams, files,
+                    around)
+
+
+def _run(config, ckpt, corpus, workdir, device, num_streams, files,
+         around):
+    srcs, png_sizes, what = corpus_files(corpus, workdir, files)
+    licdir, recdir, servedir = (os.path.join(workdir, d)
+                                for d in ("lic", "rec", "serve"))
+    for d in (licdir, recdir, servedir):
+        os.makedirs(d, exist_ok=True)
+    base = ["--config", config, "--ckpt", ckpt, "--num-streams",
+            str(num_streams), "--device", str(device)]
+    lics = [os.path.join(licdir, _stem(f) + ".lic") for f in srcs]
+
+    def oneshot(name, argv, clear):
+        if clear:
+            CC.TIMER.totals.clear()
+            CC.TIMER.counts.clear()
+        t0 = time.time()
+        with around(name):
+            CC.main(argv + base)
+        return time.time() - t0
+
+    # cold: the process's first model load, cuDNN plans and kernel module;
+    # warm: the same command again (a new model load, everything else
+    # warm), phase-split by TIMER
+    comp = ["compress", "--input", *srcs, "--outdir", licdir]
+    dec = ["decompress", "--input", *lics, "--outdir", recdir,
+           "--ext", ".npy"]
+    t_comp_cold = oneshot("compress_cold", comp, False)
+    t_comp = oneshot("compress_warm", comp, True)
+    warm_phases = CC.TIMER.report()
+    t_dec_cold = oneshot("decompress_cold", dec, False)
+    t_dec = oneshot("decompress_warm", dec, True)
+    warm_phases.update(CC.TIMER.report())
+
+    # a serve session: the pipeline stays alive across commands, so the
+    # passes after the warm-up measure the marginal per-corpus cost
+    pipe = CC._load_model(config, ckpt, num_streams, device=device)
+    origs = {f: CC._read_image(f) for f in srcs}
+    n_tiles = sum(-(-a.shape[0] // pipe.tile_h) * (-(-a.shape[1]
+                                                     // pipe.tile_w))
+                  for a in origs.values())
+    slics = [os.path.join(servedir, _stem(f) + ".lic") for f in srcs]
+
+    def serve(name, line):
+        buf = io.StringIO()
+        t0 = time.time()
+        with around(name):
+            CC.serve(pipe, lines=[line], out=buf, ext=".npy")
+        return time.time() - t0
+
+    comp_line = "compress %s %s" % (servedir, " ".join(srcs))
+    dec_line = "decompress %s %s" % (servedir, " ".join(slics))
+    serve("serve_warmup_compress", comp_line)
+    serve("serve_warmup_decompress", dec_line)
+    CC.TIMER.totals.clear()
+    CC.TIMER.counts.clear()
+    comp_marg, dec_marg = [], []
+    for i in range(3):
+        comp_marg.append(serve(f"serve_compress_{i}", comp_line))
+        dec_marg.append(serve(f"serve_decompress_{i}", dec_line))
+    serve_phases = CC.TIMER.report()
+    serve_exact = {f: np.array_equal(a, np.load(os.path.join(
+        servedir, _stem(f) + ".npy"))) for f, a in origs.items()}
+    t_comp_m, t_dec_m = (statistics.median(comp_marg),
+                         statistics.median(dec_marg))
+
+    rows, webp_why = [], None
+    for f, lic in zip(srcs, lics):
+        orig = origs[f]
+        rec = np.load(os.path.join(recdir, _stem(f) + ".npy"))
+        lic_bytes, png_bytes = os.path.getsize(lic), png_sizes[f]
+        webp, why = _webp_bytes(orig)
+        webp_why = webp_why or why
+        numel = orig.size
+        rows.append({
+            "file": os.path.basename(f),
+            "shape": list(orig.shape),
+            "bit_exact": bool(np.array_equal(orig, rec)
+                              and serve_exact[f]),
+            "lic_bytes": lic_bytes,
+            "png_bytes": png_bytes,
+            "webp_lossless_bytes": webp,
+            "gzip9_bytes": len(gzip.compress(orig.tobytes(), 9)),
+            "lic_bpd": 8.0 * lic_bytes / numel,
+            "png_bpd": 8.0 * png_bytes / numel,
+            "webp_bpd": None if webp is None else 8.0 * webp / numel,
+        })
+        print(f"{'OK ' if rows[-1]['bit_exact'] else 'MISMATCH'} "
+              f"{rows[-1]['file']}: lic {lic_bytes}B vs png {png_bytes}B "
+              f"vs webp {webp}B")
+
+    def tot(key):
+        vals = [r[key] for r in rows]
+        return None if None in vals else sum(vals)
+
+    if webp_why:
+        what += f"; lossless WebP not measured: {webp_why}"
+    return {
+        "what": "file-level codec demo: cli.codec over " + what,
+        "config": config,
+        "ckpt": os.path.basename(ckpt),
+        "device": device_label(device),
+        "all_bit_exact": all(r["bit_exact"] for r in rows),
+        "total_lic_bytes": tot("lic_bytes"),
+        "total_png_bytes": tot("png_bytes"),
+        "total_webp_bytes": tot("webp_lossless_bytes"),
+        "total_gzip9_bytes": tot("gzip9_bytes"),
+        "lic_vs_png": tot("lic_bytes") / tot("png_bytes"),
+        "lic_vs_webp": (None if webp_why
+                        else tot("lic_bytes") / tot("webp_lossless_bytes")),
+        "compress_wall_warm_s": t_comp,
+        "compress_wall_cold_s": t_comp_cold,
+        "decompress_wall_warm_s": t_dec,
+        "decompress_wall_cold_s": t_dec_cold,
+        "warm_oneshot_phases": _phases(warm_phases),
+        "serve_marginal": {
+            "what": "steady-state per-corpus cost in a `serve` session "
+                    "(pipeline alive across commands, codec granularity "
+                    f"{_granularity(pipe)}); median of 3 passes after one "
+                    "warm-up pass",
+            "n_model_tiles": n_tiles,
+            "compress_s": t_comp_m,
+            "decompress_s": t_dec_m,
+            "compress_samples_s": comp_marg,
+            "decompress_samples_s": dec_marg,
+            "roundtrip_ms_per_tile": 1e3 * (t_comp_m + t_dec_m)
+            / max(n_tiles, 1),
+            "phases": _phases(serve_phases),
+        },
+        "files": rows,
+    }
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--config", default="configs/synthetic64.yaml")
+    ap.add_argument("--ckpt", required=True)
+    ap.add_argument("--corpus", default="indomain",
+                    help="indomain, natural, or a directory of PNGs")
+    ap.add_argument("--files", nargs="+", default=None, metavar="STEM",
+                    help="code only these files of the corpus")
+    ap.add_argument("--workdir", default=None,
+                    help="where the .lic and decoded files go (default: a "
+                    "temporary directory, removed at the end)")
+    ap.add_argument("--num-streams", type=int, default=4096)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card; 'cpu' to run on "
+                    "the CPU)")
+    ap.add_argument("--out", default=None,
+                    help="a new JSON file for the result")
+    args = ap.parse_args(argv)
+    out = run(args.config, args.ckpt, args.corpus, args.workdir,
+              args.device, args.num_streams, args.files)
+    print(json.dumps({k: v for k, v in out.items() if k != "files"},
+                     indent=1))
+    if args.out:
+        write_new(args.out, out)
+    if not out["all_bit_exact"]:
+        raise SystemExit("round trip NOT bit-exact")
+    return out
+
+
+if __name__ == "__main__":
+    main()

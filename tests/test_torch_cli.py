@@ -280,13 +280,17 @@ def test_stored_escape_with_pil(plain_ckpt, tmp_path):
 
 def test_stored_escape_without_pil(plain_ckpt, tmp_path, monkeypatch):
     """With PIL not importable: the escape is stored-zlib and round-trips
-    through .npy; a stored-png container, a .png input and a .png output
-    raise SystemExit naming PIL.  Tolerance: exact."""
+    through .npy; a stored-png container and a .png input are read by the
+    package's own PNG reader (utils/png.py) and decode to the exact
+    pixels; a .png output and an input that is neither .png nor .npy raise
+    SystemExit naming PIL.  Tolerance: exact."""
     png_noise = _img(12, (5, 6, 3))
     png_lic = tmp_path / "p.lic"
     C.main(["compress", "--input", _png(tmp_path / "p.png", png_noise)]
            + _args(plain_ckpt, tmp_path))
     assert _header(png_lic)[0]["mode"] == "stored-png"
+    big = _img(14, (20, 35, 3))
+    big_png = _png(tmp_path / "q.png", big)
     monkeypatch.setitem(sys.modules, "PIL", None)
     monkeypatch.setitem(sys.modules, "PIL.Image", None)
     noise = _img(13, (5, 6, 3))
@@ -298,11 +302,18 @@ def test_stored_escape_without_pil(plain_ckpt, tmp_path, monkeypatch):
     C.main(["decompress", "--input", str(out / "n.lic")]
            + _args(plain_ckpt, out, "--ext", ".npy"))
     assert np.array_equal(np.load(out / "n.npy"), noise)
+    C.main(["decompress", "--input", str(png_lic)]
+           + _args(plain_ckpt, out, "--ext", ".npy"))
+    assert np.array_equal(np.load(out / "p.npy"), png_noise)
+    C.main(["compress", "--input", big_png, "--no-stored-fallback"]
+           + _args(plain_ckpt, out))
+    assert _header(out / "q.lic")[0]["mode"] == "flow"
+    C.main(["decompress", "--input", str(out / "q.lic")]
+           + _args(plain_ckpt, out, "--ext", ".npy"))
+    assert np.array_equal(np.load(out / "q.npy"), big)
+    (tmp_path / "p.bmp").write_bytes(b"BM")
     with pytest.raises(SystemExit, match="PIL"):
-        C.main(["decompress", "--input", str(png_lic)]
-               + _args(plain_ckpt, out, "--ext", ".npy"))
-    with pytest.raises(SystemExit, match="PIL"):
-        C.main(["compress", "--input", str(tmp_path / "p.png")]
+        C.main(["compress", "--input", str(tmp_path / "p.bmp")]
                + _args(plain_ckpt, out))
     with pytest.raises(SystemExit, match="PIL"):
         C.main(["decompress", "--input", str(out / "n.lic")]

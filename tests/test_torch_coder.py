@@ -99,9 +99,19 @@ def _agreeing_symbols(rng, n):
 # ---------------------------------------------------------------------------
 
 
+# modules the import check must reach (it walks the whole package)
+MUST_WALK = (
+    "codec.cuda_rans", "models.exact", "train.trainer", "cli.codec",
+    "parallel.multiproc", "utils.graphs", "utils.png", "demo",
+    "demo.make_corpus", "demo.stress", "demo.eval_phases",
+    "demo.filecodec_demo",
+)
+
+
 def test_port_imports_no_jax(tmp_path):
-    """Every port module and the root chip scripts import without jax, flax
-    or the JAX package (checked in a fresh interpreter).  In the same
+    """Every port module (the whole package, walked with pkgutil) and the
+    root chip scripts import without jax, flax or the JAX package (checked
+    in a fresh interpreter).  In the same
     interpreter yaml, PIL, msgpack, optax and tensorboard -- packages the
     card's machine does not have -- are blocked at import; the training
     CLI still trains one CPU step with eval coding and saves, and a JAX
@@ -125,27 +135,22 @@ def test_port_imports_no_jax(tmp_path):
     jckpt.save_checkpoint(jpath, {"params": params, "step": 5})
     want = sum(float(v.double().sum()) for v in
                params_from_flax(params).values())
-    mods = [
-        f"{PORT}.{m}" for m in (
-            "codec", "codec.cdf", "codec.interleaved", "codec.native",
-            "codec.cuda_rans", "codec.container", "codec.coder",
-            "codec.oracle", "codec.host_rans", "ops", "ops.rounding",
-            "ops.reshape", "ops.dlogistic", "models", "models.config",
-            "models.layers", "models.invertible", "models.idflow",
-            "models.exact", "models.vqvae", "models.residual_codec",
-            "models.twolevel", "models.twolevel_codec", "ops.distributions",
-            "convert", "registry", "data", "data.datasets",
-            "data.loader", "train", "train.optim", "train.metrics",
-            "train.checkpoint", "train.trainer", "train.vqvae_trainer",
-            "train.residual_trainer", "train.twolevel_trainer",
-            "train.msgpack", "train.finetuner", "utils.profiling",
-            "utils.plot_metrics", "cli.yamlite", "cli.train", "cli.codec",
-            "cli.make_res_data", "cli.visualize", "cli.baselines",
-            "parallel", "parallel.mesh", "parallel.sharding", "parallel.vq",
-            "parallel.codec", "parallel.flow_codec", "parallel.full_codecs",
-            "parallel.multiproc", "parallel.scaling", "cli.scaling",
-        )
-    ] + [PORT, "chip_smoke", "chip_decode_variants", "chip_profile_read"]
+    # every module of the package, found by walking it in the checking
+    # interpreter itself (a package that fails to import raises), and the
+    # root chip scripts
+    walk = (
+        "import importlib, pkgutil\n"
+        f"import {PORT}\n"
+        "def _fail(name):\n"
+        "    raise ImportError(name)\n"
+        f"mods = [m.name for m in pkgutil.walk_packages({PORT}.__path__, "
+        f"{PORT!r} + '.', onerror=_fail)]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        f"want = {[f'{PORT}.{m}' for m in MUST_WALK]!r}\n"
+        "assert set(want) <= set(mods), sorted(set(want) - set(mods))\n"
+        "import chip_smoke, chip_decode_variants, chip_profile_read\n"
+    )
     blocked = ("yaml", "PIL", "msgpack", "optax", "tensorboard",
                "tensorflow")
     sets = ["max_step=1", "step_per_epoch=1", "evaluate_interval=1",
@@ -166,7 +171,7 @@ def test_port_imports_no_jax(tmp_path):
         # a None entry makes `import name` raise ImportError and
         # importlib.util.find_spec(name) report the package missing
         + "".join(f"sys.modules[{b!r}] = None\n" for b in blocked)
-        + "".join(f"import {m}\n" for m in mods)
+        + walk
         + check
         + f"t = {PORT}.cli.train.main({argv!r})\n"
         "assert t.step == 1 and t.writer._tb is None\n"
