@@ -1,40 +1,62 @@
 #!/bin/bash
-# The demo harnesses' long run on one GPU, from the repository root:
+# The demo harnesses' and the measurement harnesses' long runs on one GPU,
+# from the repository root:
 #
-#     bash chip_demo_run.sh [OUTDIR]        # default logs/demo_run
+#     bash chip_demo_run.sh [OUTDIR] [all|demo|bench]    # default logs/demo_run all
 #
-# 5000 steps each of configs/synthetic64.yaml and configs/natural64.yaml
-# (checkpoints under logs/long), one eval of each checkpoint
-# (demo.eval_phases, the 4 test batches), demo.filecodec_demo with the
-# synthetic64 model over the in-domain and natural corpora and
+# demo: 5000 steps each of configs/synthetic64.yaml and
+# configs/natural64.yaml (checkpoints under logs/long), one eval of each
+# checkpoint (demo.eval_phases, the 4 test batches), demo.filecodec_demo
+# with the synthetic64 model over the in-domain and natural corpora and
 # demo/corpus/, and with the natural64 model over the natural corpus, then
-# demo.stress at 50M symbols (3 timed runs per device path).  Each step's
-# output goes to OUTDIR/<step>.log, its JSON to OUTDIR/<step>.json, the
-# training metrics to OUTDIR/log_<config>/metrics.jsonl; OUTDIR/steps.txt
-# lists each step's exit code and seconds.  About 25 minutes on an H100.
+# demo.stress at 50M symbols (3 timed runs per device path).  About 25
+# minutes on an H100.
+#
+# bench: the port's bench at the JAX bench's defaults in bfloat16 (its
+# default) and float32 (bench_flagship_bf16.json, bench_flagship_f32.json),
+# then demo.serving_roofline, demo.mfu_roofline and
+# demo.mfu_roofline_padded at the JAX scripts' defaults
+# (serving_roofline.json, mfu_roofline.json, mfu_roofline_padded.json).
+# About 20 minutes on an H100.
+#
+# Each step's output goes to OUTDIR/<step>.log, its JSON to
+# OUTDIR/<step>.json, the training metrics to OUTDIR/log_<config>/
+# metrics.jsonl; OUTDIR/steps.txt lists each step's exit code and seconds.
 P=finalproject_losslessimagecompression_tpu_torch
 O=${1:-logs/demo_run}
+PARTS=${2:-all}
 mkdir -p $O logs/long
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader | tee $O/nvidia_smi.txt
 python -c 'import sys, torch; print(sys.version, torch.__version__, torch.version.cuda)' | tee $O/versions.txt
 run() { name=$1; shift; s0=$SECONDS; "$@" > $O/$name.log 2>&1; rc=$?;
         echo "$name rc=$rc s=$((SECONDS - s0))" | tee -a $O/steps.txt; tail -n 3 $O/$name.log; }
-for m in synthetic64 natural64; do
-  run train_$m python -m $P.cli.train --config configs/$m.yaml \
-      --set train.max_step=5000 --set train.save_path=logs/long/$m.ckpt \
-      --set train.writer_path=$O/log_$m
-  run eval_$m python -m $P.demo.eval_phases --config configs/$m.yaml \
-      --ckpt logs/long/$m.ckpt --batches 4 --out $O/eval_phases_$m.json
-done
-for c in indomain natural demo/corpus; do
-  n=$(basename $c)
-  run filecodec_synthetic64_$n python -m $P.demo.filecodec_demo \
-      --config configs/synthetic64.yaml --ckpt logs/long/synthetic64.ckpt \
-      --corpus $c --out $O/filecodec_synthetic64_$n.json
-done
-run filecodec_natural64_natural python -m $P.demo.filecodec_demo \
-    --config configs/natural64.yaml --ckpt logs/long/natural64.ckpt \
-    --corpus natural --out $O/filecodec_natural64_natural.json
-run stress python -m $P.demo.stress --iters 3 --out $O/stress_50m.json
-rm -f $O/log_*/events.out.tfevents.*
+if [ "$PARTS" = all ] || [ "$PARTS" = demo ]; then
+  for m in synthetic64 natural64; do
+    run train_$m python -m $P.cli.train --config configs/$m.yaml \
+        --set train.max_step=5000 --set train.save_path=logs/long/$m.ckpt \
+        --set train.writer_path=$O/log_$m
+    run eval_$m python -m $P.demo.eval_phases --config configs/$m.yaml \
+        --ckpt logs/long/$m.ckpt --batches 4 --out $O/eval_phases_$m.json
+  done
+  for c in indomain natural demo/corpus; do
+    n=$(basename $c)
+    run filecodec_synthetic64_$n python -m $P.demo.filecodec_demo \
+        --config configs/synthetic64.yaml --ckpt logs/long/synthetic64.ckpt \
+        --corpus $c --out $O/filecodec_synthetic64_$n.json
+  done
+  run filecodec_natural64_natural python -m $P.demo.filecodec_demo \
+      --config configs/natural64.yaml --ckpt logs/long/natural64.ckpt \
+      --corpus natural --out $O/filecodec_natural64_natural.json
+  run stress python -m $P.demo.stress --iters 3 --out $O/stress_50m.json
+  rm -f $O/log_*/events.out.tfevents.*
+fi
+if [ "$PARTS" = all ] || [ "$PARTS" = bench ]; then
+  run bench_flagship_bf16 python -m $P.bench --out $O/bench_flagship_bf16.json
+  run bench_flagship_f32 python -m $P.bench --f32 --out $O/bench_flagship_f32.json
+  run serving_roofline python -m $P.demo.serving_roofline \
+      --out $O/serving_roofline.json
+  run mfu_roofline python -m $P.demo.mfu_roofline --out $O/mfu_roofline.json
+  run mfu_roofline_padded python -m $P.demo.mfu_roofline_padded \
+      --out $O/mfu_roofline_padded.json
+fi
 cat $O/steps.txt

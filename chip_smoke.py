@@ -168,8 +168,9 @@ Phases, each printing one JSON line:
             tiles), so every launch shape of every path is held against
             the plain coder.
 13. large   an 8M-symbol message (S=8192, k=1024): the kernels against their
-            plain versions as in phase 3, then the whole encode and decode
-            timed, bit-exact.
+            plain versions as in phase 3 (each plain version run once, its
+            checking call timed: the plain decode takes seconds), then the
+            whole encode and decode timed, bit-exact.
 14. finetune  configs/config-trans-test.yaml at full width through
             cli.train (the Finetuner: 64x48x3, nflows 8, nsplit 3,
             DenseBlocks 512 x 12, batch 16, the config's Adamax 1e-3 with
@@ -239,19 +240,35 @@ Phases, each printing one JSON line:
             and a serve session, every file bit-exact, each command's
             launches; then
             demo.stress at 50M symbols (S = 8192, k = 6112): host in the
-            loop, kernel and plain paths bit-exact, the kernels' container
-            equal to the plain coder's, the decode windowed, coded bits
-            per symbol within 0.001 of results/stress_50m_r05.json; then
-            the three kernels against their plain versions on that
-            message (each plain version run once), a row of the kernels
-            line, and `paths` at the path's other launch shapes.  Files
-            under logs/chip_smoke_demo, removed at the end.
+            loop and kernel paths bit-exact, the decode windowed, coded
+            bits per symbol within 0.001 of results/stress_50m_r05.json;
+            then the three kernels against their plain versions on that
+            message (each plain version run once: the stress's own plain
+            path is left out), a row of the kernels line, and `paths` at
+            the path's other launch shapes.  Files under
+            logs/chip_smoke_demo, removed at the end.
+19. bench   the measurement harnesses at the flagship: `bench.main` in
+            bfloat16 (its default) and with --f32, at cut iters, train
+            steps and windows (BENCH_CUT; the f32 run's coder messages cut
+            to 131,072 symbols): e2e images/s (fused, replayed)
+            beside level, bit-exact on every pass, real and analytic bpd,
+            the phase split, idle share of a profiled pass (its recorded
+            rANS launches equal to the wrappers' 3 each), latency, the
+            train step's host and device times and MFU against the
+            dtype's peak, the coder at 1.2M symbols (S = 8192, k = 144)
+            and 8M (the plain path once), the host C++ baseline; the two
+            dtypes' containers must differ.  Then
+            `demo.serving_roofline` at 8192 streams (the NN inverse exact,
+            the bf16 probe exact) and `demo.mfu_roofline_padded`'s
+            function check at multiple 16 (latents that differ counted,
+            the padded codec exact); `paths` at the new launch shapes.
 
 Then the `kernels` summary line (`launches_fused`: phase 4b's counts by
 codec and case; `launches_profiled`: the launches the profiler recorded
 on the device in the profiled passes of phases 4, 4b, 6, 7 and 16;
 `launches_scaleout`: phase 17's counts by part, rank and direction;
-`launches_demo`: phase 18's by command), the
+`launches_demo`: phase 18's by command; `launches_bench`: phase 19's
+by run), the
 nvidia-smi line, and last {"ok": true, "device": {...}}.  Any failure
 raises and exits non-zero; with no CUDA device, or outside the
 repository, it exits non-zero and prints no result.  `--quick` runs
@@ -274,6 +291,16 @@ import time
 
 import numpy as np
 import torch
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from finalproject_losslessimagecompression_tpu_torch.bench import (  # noqa: E402,E501
+    coded_shapes,
+    perturbed,
+)
+from finalproject_losslessimagecompression_tpu_torch.utils.profiling import (  # noqa: E402,E501,F401 (chip_profile_read.py reads kernel_times here)
+    kernel_times,
+    profile_busy,
+)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -685,22 +712,6 @@ def phase_kernels(depth_ns):
     return rows, grouped_case(), corrupt_case()
 
 
-def coded_shapes(codec, batches):
-    """[[S, k, seeded]] of every coding launch a FlowCodec makes on batches
-    of the given sizes, from its own stream policy (level 0 is unseeded)."""
-    from finalproject_losslessimagecompression_tpu_torch.codec.interleaved import (  # noqa: E501
-        _plan_steps,
-    )
-
-    out = set()
-    for b in batches:
-        fold = 1 if codec.cfg.batch_squeeze else b
-        for level, p in enumerate(codec.plans):
-            S = codec._level_S(level, fold)
-            out.add((S, _plan_steps(fold * p.z_ch * p.h * p.w, S), level > 0))
-    return [list(s) for s in sorted(out)]
-
-
 def path_kernels(rows, paths, depth_ns, seed: int = 130):
     """kernel_case at every (S, k, seeded) a driven path coded with that no
     row holds yet, so each launch shape of every path is held against the
@@ -715,17 +726,6 @@ def path_kernels(rows, paths, depth_ns, seed: int = 130):
 # ---------------------------------------------------------------------------
 # phase 4: the main path at full width
 # ---------------------------------------------------------------------------
-
-
-def perturbed(model, seed: int = 1):
-    """Fresh projections are zero, which would make every shift and prior
-    trivial: perturb them by N(0, 0.01^2) from a seeded generator."""
-    g = torch.Generator(device="cpu").manual_seed(seed)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            if ".proj." in name:
-                p.add_(0.01 * torch.randn(p.shape, generator=g).to(p.device))
-    return model.eval()
 
 
 def flagship_codec(granularity=None):
@@ -849,50 +849,28 @@ def phase_e2e(batch: int = 16, queue: int = 4):
     return res
 
 
-def rans_calls(kernels):
-    """{rANS kernel: launches the profiler recorded} of kernel_times'
-    list."""
-    return {n: sum(c for name, _, c in kernels if n in name)
-            for n in ENC + DEC}
-
-
 def profile_pass(run, unprofiled_wall: float, phase: str = "profile",
                  top: int = 12, want=None):
-    """torch.profiler over one queue pass `run()`: device time by kernel
-    name, of the convolutions and of the rANS kernels, and the share of
-    wall time the device sat idle, against the profiled pass's own wall
-    time and against the unprofiled pass's.  `want` ({kernel: launches}):
-    the rANS launches the profiler must record in the pass (`rans_calls`,
-    measured on the device, replayed graphs included); the profiler has
-    dropped a kernel's records before (`device_ms_fallback`), so a pass
-    that records fewer is traced again, three times at most, and then
-    fails.  Emits and returns the record."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for attempt in range(1, 4):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.time()
-            run()
-            torch.cuda.synchronize()
-            wall = time.time() - t0
-        kernels = kernel_times(prof)
-        calls = rans_calls(kernels)
-        if want is None or calls == want:
-            break
-        assert all(calls[n] <= want[n] for n in want), (phase, calls, want)
-    assert want is None or calls == want, (phase, calls, want)
-    busy_us = sum(us for _, us, _ in kernels)
+    """torch.profiler over one queue pass `run()` (`profile_busy`): device
+    time by kernel name, of the convolutions and of the rANS kernels, and
+    the share of wall time the device sat idle, against the profiled
+    pass's own wall time and against the unprofiled pass's.  `want`
+    ({kernel: launches}): the rANS launches the profiler must record in
+    the pass (measured on the device, replayed graphs included), traced
+    again up to three times where the profiler dropped records.  Emits and
+    returns the record."""
+    busy = profile_busy(run, unprofiled_wall, want=want, label=phase)
+    kernels = busy.pop("kernels")
     rans_us = sum(us for name, us, _ in kernels
                   if any(n in name for n in ENC + DEC))
-    res = {"phase": phase, "wall_s": wall, "device_busy_s": busy_us / 1e6,
-           "rans_device_ms": rans_us / 1e3, "rans_calls": calls,
-           "traces": attempt,
+    res = {"phase": phase, "wall_s": busy["wall_s"],
+           "device_busy_s": busy["device_busy_s"],
+           "rans_device_ms": rans_us / 1e3, "rans_calls": busy["rans_calls"],
+           "traces": busy["traces"],
            "conv_device_ms": conv_ms(kernels),
-           "device_idle_share": 1.0 - busy_us / 1e6 / wall,
-           "device_idle_share_unprofiled": 1.0 - busy_us / 1e6
-           / unprofiled_wall,
+           "device_idle_share": busy["device_idle_share"],
+           "device_idle_share_unprofiled":
+           busy["device_idle_share_unprofiled"],
            "top": [{"name": name[:80], "device_ms": us / 1e3, "calls": n}
                    for name, us, n in kernels[:top]]}
     emit(res)
@@ -919,26 +897,6 @@ def conv_ms(kernels) -> float:
     keys = ("conv", "cudnn", "xmma", "implicit", "winograd", "fft")
     return sum(us for name, us, _ in kernels
                if any(k in name.lower() for k in keys)) / 1e3
-
-
-def kernel_times(prof):
-    """[(kernel name, device us, launches)] of a profile, most time first.
-    Kernels only: operator entries carry their kernels' time as well, and a
-    user annotation (`Optimizer.step#Adamax.step`) spans its kernels on the
-    device timeline.  Read from the profiler's raw events: building
-    `prof.events()` (the operator tree) for a flagship pass's ~85,000
-    device events took ~45 s of host time beside an H100
-    (chip_profile_read.py compares the two reads)."""
-    times, calls = {}, {}
-    for e in prof.profiler.kineto_results.events():
-        us = (e.end_ns() - e.start_ns()) / 1e3
-        if (e.device_type() != torch.autograd.DeviceType.CUDA
-                or e.is_user_annotation() or us <= 0):
-            continue
-        times[e.name()] = times.get(e.name(), 0.0) + us
-        calls[e.name()] = calls.get(e.name(), 0) + 1
-    return sorted(((k, times[k], calls[k]) for k in times),
-                  key=lambda kv: -kv[1])
 
 
 # ---------------------------------------------------------------------------
@@ -1394,24 +1352,17 @@ def call_seconds(run, reps: int) -> float:
 
 
 def profile_step(run, label: str, unprofiled_s: float, top: int = 8):
-    """torch.profiler over one call of run(): device busy seconds and idle
-    share of its wall (and of the unprofiled call's), kernel launches, the
-    top kernels (kernels only, user annotations excluded)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        run()
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-    kernels = kernel_times(prof)
-    busy_s = sum(us for _, us, _ in kernels) / 1e6
-    assert busy_s > 0, f"{label}: the profiler recorded no device time"
-    return {"profile": label, "wall_s": wall, "device_busy_s": busy_s,
-            "device_idle_share": 1.0 - busy_s / wall,
-            "device_idle_share_unprofiled": 1.0 - busy_s / unprofiled_s,
+    """torch.profiler over one call of run() (`profile_busy`): device busy
+    seconds and idle share of its wall (and of the unprofiled call's),
+    kernel launches, the top kernels (kernels only, user annotations
+    excluded)."""
+    busy = profile_busy(run, unprofiled_s, label=label)
+    kernels = busy["kernels"]
+    return {"profile": label, "wall_s": busy["wall_s"],
+            "device_busy_s": busy["device_busy_s"],
+            "device_idle_share": busy["device_idle_share"],
+            "device_idle_share_unprofiled":
+            busy["device_idle_share_unprofiled"],
             "kernel_launches": sum(n for _, _, n in kernels),
             "top": [{"name": name[:80], "device_ms": us / 1e3, "calls": n}
                     for name, us, n in kernels[:top]]}
@@ -3061,7 +3012,7 @@ def phase_large(depth_ns, n: int = 8 * 2**20):
     """The kernels against their plain versions on an 8M-symbol message,
     then the whole encode and decode (layout, kernels, compaction) timed."""
     row = kernel_case(8192, n // 8192, seeded=False, seed=7,
-                      depth_ns=depth_ns)
+                      depth_ns=depth_ns, plain_once=True)
     from finalproject_losslessimagecompression_tpu_torch.codec import (
         interleaved as IL,
     )
@@ -3246,19 +3197,20 @@ def demo_filecodec(wrappers, ckpt, corpus, name, hide_pil=False):
 
 
 def demo_stress(wrappers, ref):
-    """demo.stress at the reference's 50M symbols, one timed run per
-    device path."""
+    """demo.stress at the reference's 50M symbols, one timed run of the
+    host and the kernel path (the plain path is left to
+    `stress_kernel_row`, which runs each plain version once on the same
+    message and holds the kernels against it)."""
     from finalproject_losslessimagecompression_tpu_torch.demo import stress
 
     reset_launches(wrappers)
-    out = stress.run(n=STRESS_N, iters=1)
+    out = stress.run(n=STRESS_N, iters=1, plain=False)
     launches = launch_counts(wrappers)
     res = {"phase": "demo_stress", **out,
            "jax_coded_bits_per_sym": ref["stress_coded_bits_per_sym"],
            "launches": launches}
     emit(res)
-    assert out["bit_exact"] and out["kernel_bit_exact"] \
-        and out["plain_bit_exact"] and out["kernel_equals_plain"]
+    assert out["bit_exact"] and out["kernel_bit_exact"]
     assert out["decode_windowed"] and out["steps"] == 6112
     assert abs(out["coded_bits_per_sym"]
                - ref["stress_coded_bits_per_sym"]) <= 1e-3, \
@@ -3345,16 +3297,98 @@ def phase_demo(wrappers, depth_ns):
            "stress_bit_exact": {
                "host": stress_res["bit_exact"],
                "kernel": stress_res["kernel_bit_exact"],
-               "plain": stress_res["plain_bit_exact"]},
+               "plain": row["decode"]["max_abs_err"] == 0},
            "coded_bits_per_sym": stress_res["coded_bits_per_sym"],
            "jax_coded_bits_per_sym": ref["stress_coded_bits_per_sym"],
            "stress_sym_per_s": {
                "host": stress_res["host_sym_per_s"],
                "kernel": stress_res["kernel_device_sym_per_s"],
-               "plain": stress_res["plain_device_sym_per_s"]}}
+               # the plain versions' kernel-only times (no layout or
+               # compaction), each run once
+               "plain": STRESS_N / ((row["encode"]["plain_ms"]
+                                     + row["decode"]["plain_ms"]) / 1e3)}}
     emit(res)
     return {"train": train, "corpora": corpora, "stress": stress_res,
             "row": row, "kernel_shapes": shapes}
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the measurement harnesses
+# ---------------------------------------------------------------------------
+
+# the bench's sizes cut for the smoke (the JAX bench's are iters 5, steps
+# 10, windows 3, latency iters 20); the float32 run's coder messages are
+# cut too (the coder does not depend on the conv stack's dtype, and the
+# bfloat16 run codes the full 1.2M and 8M symbols)
+BENCH_CUT = ["--iters", "1", "--steps", "2", "--windows", "2",
+             "--latency-iters", "3"]
+BENCH_CUT_F32 = ["--f32", "--codec-n", "131072", "--large-n", "131072"]
+
+
+def phase_bench(wrappers):
+    """`bench.main` at the flagship in bfloat16 (its default) and with
+    `--f32`, at BENCH_CUT; `demo.serving_roofline` at 8192 streams; the
+    padded function check at multiple 16; each one's launches counted
+    from zero.  Both dtypes code bit-exactly and their containers differ."""
+    import gc
+
+    from finalproject_losslessimagecompression_tpu_torch import bench
+    from finalproject_losslessimagecompression_tpu_torch.demo import (
+        mfu_roofline_padded,
+        serving_roofline,
+    )
+
+    t0 = time.time()
+    launches, lines = {}, {}
+    for dtype, flags in (("bf16", []), ("f32", BENCH_CUT_F32)):
+        with counted_command(wrappers, launches, f"bench_{dtype}"):
+            lines[dtype] = line = bench.main(BENCH_CUT + flags)
+        emit({"phase": f"bench_{dtype}", "cut": BENCH_CUT + flags, **line})
+        assert line["bit_exact"] and line["platform"] == "gpu", dtype
+        assert line["bf16"] == (dtype == "bf16")
+        assert line["e2e_launches_per_pass"] == each(3), line
+        if dtype == "bf16":
+            assert line["codec_streams_steps"] == [8192, 144]
+            assert line["codec_large_ring_windowed"]
+        gc.collect()
+        torch.cuda.empty_cache()
+    assert (lines["bf16"]["e2e_containers_sha256"]
+            != lines["f32"]["e2e_containers_sha256"]), \
+        "bf16 and f32 containers are equal: the bf16 stack did not run"
+    with counted_command(wrappers, launches, "serving_roofline"):
+        serving = serving_roofline.run(iters=1, streams=(8192,))
+    emit({"phase": "bench_serving_roofline", **serving})
+    assert serving["nn_inverse_reconstructs"]
+    assert serving["bf16_serving_probe"]["bit_exact"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    with counted_command(wrappers, launches, "padded_check_16"):
+        cfg, model = bench.build_model(False, bf16=False, device="cuda")
+        check = mfu_roofline_padded.function_check(cfg, model, 16)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "bench_padded_check", **check})
+    assert check["padded_codec_bit_exact"]
+    for name in wrappers:
+        assert sum(c[name] for c in launches.values()) > 0, \
+            f"bench path: {name} never launched"
+    shapes = {tuple(x) for line in lines.values()
+              for x in line["kernel_shapes"]}
+    shapes |= {tuple(x) for x in serving["rans_level_shapes"]}
+    shapes |= {tuple(x) for x in check["kernel_shapes"]}
+    res = {"phase": "bench", "wall_s": time.time() - t0,
+           "images_per_s": {d: ln["value"] for d, ln in lines.items()},
+           "level_images_per_s": {d: ln["e2e_level_images_per_s"]
+                                  for d, ln in lines.items()},
+           "device_idle_share": {d: ln["device_idle_share"]
+                                 for d, ln in lines.items()},
+           "train_mfu_pct": {d: ln["train_mfu_pct"]
+                             for d, ln in lines.items()},
+           "launches": launches,
+           "kernel_shapes": [list(x) for x in sorted(shapes)]}
+    emit(res)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -3422,7 +3456,7 @@ def launches_demo(demo, name):
 
 
 def kernels_line(rows, e2e, fused, train, cli, residual, pipes, tools,
-                 scaleout, demo):
+                 scaleout, demo, bench):
     head = [r for r in rows if r["S"] == 384 and not r["seeded"]][0]
     out = []
     for key, name, replaces, extra in (
@@ -3466,6 +3500,9 @@ def kernels_line(rows, e2e, fused, train, cli, residual, pipes, tools,
             "launches_scaleout": (launches_scaleout(scaleout, name)
                                   if scaleout else None),
             "launches_demo": launches_demo(demo, name) if demo else None,
+            "launches_bench": ({c: v[name] for c, v in
+                                bench["launches"].items()} if bench
+                               else None),
             "max_abs_err": max(r[key]["max_abs_err"] for r in rows),
             "matches_plain": all(r[key]["max_abs_err"] == 0 for r in rows),
             "ms": h["ms"], "plain_ms": h["plain_ms"],
@@ -3485,12 +3522,11 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     smi = phase_device()
     depth_ns = phase_depth()
     rows, _, _ = phase_kernels(depth_ns)
     e2e = fused = train = cli = residual = pipes = tools = scaleout = None
-    demo = None
+    demo = bench = None
     if "--quick" not in argv:
         e2e = phase_e2e()
         fused = phase_fused(kernel_wrappers())
@@ -3508,8 +3544,10 @@ def main(argv) -> int:
         demo = phase_demo(kernel_wrappers(), depth_ns)
         rows.append(demo["row"])
         path_kernels(rows, (demo,), depth_ns)
+        bench = phase_bench(kernel_wrappers())
+        path_kernels(rows, (bench,), depth_ns)
     emit(kernels_line(rows, e2e, fused, train, cli, residual, pipes, tools,
-                      scaleout, demo))
+                      scaleout, demo, bench))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -264,6 +264,21 @@ def decode_launch_shape(S: int):
     return -(-threads // 32) * 32, per
 
 
+# steps between a ring refill's copy and the words' first use, by streams
+# per thread (the DEPTH of `launch_decode`'s instantiations in the source)
+_RING_DEPTH = {1: 2, 2: 2, 4: 1, 8: 1}
+
+
+def decode_ring_words(S: int) -> int:
+    """32-bit words of the decode kernel's shared-memory ring at S streams:
+    the least power of two above (DEPTH + 2) * S.  A container whose word
+    buffer is longer streams through the ring (the windowed decode)."""
+    ring = 1
+    while ring <= (_RING_DEPTH[decode_launch_shape(S)[1]] + 2) * S:
+        ring <<= 1
+    return ring
+
+
 def rans_decode(buf: torch.Tensor, num_words, hi: torch.Tensor,
                 lo: torch.Tensor, m: torch.Tensor, s: torch.Tensor,
                 lower: torch.Tensor):

@@ -47,10 +47,11 @@ CTA_SMEM_BYTES = 227 * 1024
 SEED = 6  # the draw of demo/run_stress_50m.py
 
 
-def draw(n: int):
+def draw(n: int, seed: int = SEED):
     """(v int32, means, scales float32) [n]: logistic symbols on the
-    1/256 grid, v clamped into each symbol's 2048-bin window."""
-    rng = np.random.default_rng(SEED)
+    1/256 grid, v clamped into each symbol's 2048-bin window (the draw of
+    the repository's stress and bench scripts, by their seeds)."""
+    rng = np.random.default_rng(seed)
     means = rng.uniform(-2, 2, n).astype(np.float32)
     scales = np.exp(rng.uniform(-4, 0, n)).astype(np.float32)
     raw = means + scales * rng.logistic(0, 1, n).astype(np.float32)
@@ -59,7 +60,7 @@ def draw(n: int):
     return np.clip(v, low, low + NBINS - 1), means, scales
 
 
-def _clock(device):
+def clock(device):
     """() -> stop(); stop() -> seconds since the start, device work
     included (CUDA events on the card)."""
     if device.type == "cuda":
@@ -100,7 +101,7 @@ def _timed_runs(fn, iters: int, device, check):
     clock stopped) and fn's last result."""
     secs, out = [], None
     for _ in range(iters):
-        stop = _clock(device)
+        stop = clock(device)
         out = fn()
         secs.append(stop())
         check(out)
@@ -108,7 +109,10 @@ def _timed_runs(fn, iters: int, device, check):
 
 
 def run(n: int = 50_000_000, num_streams: int = 8192, iters: int = 3,
-        device=None) -> dict:
+        device=None, plain: bool = True) -> dict:
+    """The three ways (module docstring); `plain=False` leaves out the
+    plain path, for a caller that holds the kernels against the plain
+    versions on the same message itself."""
     device = resolve_device(device)
     v, means, scales = draw(n)
     S = IL.pick_num_streams(n, num_streams)
@@ -159,7 +163,8 @@ def run(n: int = 50_000_000, num_streams: int = 8192, iters: int = 3,
         if not torch.equal(vals, vd):
             raise SystemExit("device round trip NOT bit-exact")
 
-    paths = {"plain": lambda: plain_round_trip(vd, md, sd, S)}
+    paths = ({"plain": lambda: plain_round_trip(vd, md, sd, S)} if plain
+             else {})
     if device.type == "cuda":
         paths = {"kernel": lambda: kernel_round_trip(vd, md, sd, S),
                  **paths}
@@ -172,7 +177,7 @@ def run(n: int = 50_000_000, num_streams: int = 8192, iters: int = 3,
         out[f"{name}_device_sym_per_s"] = n / statistics.median(secs)
         results[name] = res
         print(name, out[f"{name}_device_sym_per_s"], "sym/s")
-    if "kernel" in results:
+    if "kernel" in results and "plain" in results:
         enc, _ = results["kernel"]
         buf, total, hi, lo, _ = results["plain"]
         # the kernels' container equals the plain coder's word for word

@@ -15,6 +15,11 @@
   989.  None off the card or on another card.
 - `device_trace(logdir)`: a torch.profiler context over a block (host
   operations and, on the card, its kernels) that writes a Chrome trace.
+- `kernel_times(prof)`: a profile's device kernels by name (time and
+  launches), read from the profiler's raw events.
+- `profile_busy(run, unprofiled_wall, want)`: one profiled call of run()
+  on the card: its kernels, the device's busy seconds, its idle share of
+  the wall, and the rANS launches the profiler recorded.
 
 The JAX package's `enable_compile_cache` (XLA's persistent compilation
 cache) has no counterpart here: eager PyTorch compiles no program, and the
@@ -125,3 +130,75 @@ def device_trace(logdir: str) -> Iterator[object]:
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+# the port's rANS kernels (csrc/rans_kernels.cu), as the profiler names them
+RANS_KERNELS = ("rans_cdf_prepass_kernel", "rans_encode_kernel",
+                "rans_decode_kernel")
+
+
+def kernel_times(prof):
+    """[(kernel name, device us, launches)] of a profile, most time first.
+    Kernels only: operator entries carry their kernels' time as well, and a
+    user annotation (`Optimizer.step#Adamax.step`) spans its kernels on the
+    device timeline.  Read from the profiler's raw events: building
+    `prof.events()` (the operator tree) for a flagship pass's ~85,000
+    device events took ~45 s of host time beside an H100
+    (chip_profile_read.py compares the two reads)."""
+    times, calls = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        us = (e.end_ns() - e.start_ns()) / 1e3
+        if (e.device_type() != torch.autograd.DeviceType.CUDA
+                or e.is_user_annotation() or us <= 0):
+            continue
+        times[e.name()] = times.get(e.name(), 0.0) + us
+        calls[e.name()] = calls.get(e.name(), 0) + 1
+    return sorted(((k, times[k], calls[k]) for k in times),
+                  key=lambda kv: -kv[1])
+
+
+def rans_calls(kernels) -> Dict[str, int]:
+    """{rANS kernel: launches recorded} of `kernel_times`' list."""
+    return {n: sum(c for name, _, c in kernels if n in name)
+            for n in RANS_KERNELS}
+
+
+def profile_busy(run, unprofiled_wall: float, want=None, label="profile"):
+    """torch.profiler (host and card) over one call of run() on the card:
+    {"kernels": kernel_times' list, "wall_s", "device_busy_s" (the sum of
+    the kernels' device time), "device_idle_share" (1 - busy / the
+    profiled wall), "device_idle_share_unprofiled" (1 - busy /
+    `unprofiled_wall`, the same work's wall without the profiler),
+    "rans_calls", "traces"}.  `want` ({rANS kernel: launches}): the
+    launches the profiler must record in the call, replayed graphs
+    included.  The profiler has dropped a kernel's records before, so a
+    call that records fewer is traced again, three traces at most, and
+    then this raises, as it does for more launches than `want` or a trace
+    without device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(1, 4):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            run()
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        kernels = kernel_times(prof)
+        calls = rans_calls(kernels)
+        if want is None or calls == want:
+            break
+        if any(calls[n] > want[n] for n in want):
+            raise AssertionError(f"{label}: the profiler recorded {calls} "
+                                 f"rANS launches, more than {want}")
+    if want is not None and calls != want:
+        raise AssertionError(f"{label}: three traces recorded {calls} rANS "
+                             f"launches, not {want}")
+    busy_s = sum(us for _, us, _ in kernels) / 1e6
+    if busy_s <= 0:
+        raise AssertionError(f"{label}: the profiler recorded no device time")
+    return {"kernels": kernels, "wall_s": wall, "device_busy_s": busy_s,
+            "device_idle_share": 1.0 - busy_s / wall,
+            "device_idle_share_unprofiled": 1.0 - busy_s / unprofiled_wall,
+            "rans_calls": calls, "traces": attempt}

@@ -192,6 +192,16 @@ def test_stress_on_the_cpu_matches_jax():
     assert out["coded_bits_per_sym"] == 32.0 * out["num_words"] / n
 
 
+def test_stress_without_the_plain_path():
+    """`plain=False` leaves the plain path out and keeps the host path's
+    round trip and counts (a caller then holds the kernels against the
+    plain versions itself)."""
+    out = stress.run(n=20_000, num_streams=256, iters=1, device="cpu",
+                     plain=False)
+    assert out["bit_exact"] and out["num_words"] > 0
+    assert not any(k.startswith(("plain_", "kernel_")) for k in out)
+
+
 def test_write_new_refuses_an_existing_file(tmp_path):
     path = str(tmp_path / "r.json")
     demo.write_new(path, {"a": 1})
