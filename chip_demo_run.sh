@@ -2,7 +2,8 @@
 # The demo harnesses' and the measurement harnesses' long runs on one GPU,
 # from the repository root:
 #
-#     bash chip_demo_run.sh [OUTDIR] [all|demo|bench]    # default logs/demo_run all
+#     bash chip_demo_run.sh [OUTDIR] [all|demo|bench|multichip]
+#                                          # default logs/demo_run all
 #
 # demo: 5000 steps each of configs/synthetic64.yaml and
 # configs/natural64.yaml (checkpoints under logs/long), one eval of each
@@ -18,6 +19,16 @@
 # demo.mfu_roofline_padded at the JAX scripts' defaults
 # (serving_roofline.json, mfu_roofline.json, mfu_roofline_padded.json).
 # About 20 minutes on an H100.
+#
+# multichip (not part of all; needs at least four visible GPUs and fails
+# otherwise): demo.multichip over 4 NCCL ranks, one card each, at the full
+# width of configs/resflow-cond-imagenet64.yaml and at JAX's parity size
+# (multichip_4x.json, multichip_4x_parity.json); cli.scaling at the bench
+# flagship's widths in float32 (64x64, nflows 8, nsplit 3, DenseBlocks
+# 512 x 12, 16 images a rank), overhead and weak mode over 1, 2 and 4 NCCL
+# ranks (scaling_4x.json); parallel.multiproc's launcher with 4 NCCL ranks
+# and its single-process reference coder (multiproc_4x.json).  About 6
+# minutes on four H100s.
 #
 # Each step's output goes to OUTDIR/<step>.log, its JSON to
 # OUTDIR/<step>.json, the training metrics to OUTDIR/log_<config>/
@@ -58,5 +69,27 @@ if [ "$PARTS" = all ] || [ "$PARTS" = bench ]; then
   run mfu_roofline python -m $P.demo.mfu_roofline --out $O/mfu_roofline.json
   run mfu_roofline_padded python -m $P.demo.mfu_roofline_padded \
       --out $O/mfu_roofline_padded.json
+fi
+if [ "$PARTS" = multichip ]; then
+  cards=$(nvidia-smi --query-gpu=name --format=csv,noheader | wc -l)
+  if [ "$cards" -lt 4 ]; then
+    echo "multichip needs four GPUs, $cards visible" >&2
+    exit 1
+  fi
+  nvidia-smi --query-gpu=index,name,power.limit --format=csv,noheader \
+      | tee $O/nvidia_smi_4x.txt
+  # build the kernels once, before four ranks would each want them
+  run build python -c "from $P.codec import container, cuda_rans; \
+cuda_rans.build(); container._chain()"
+  # each step bounded: a hung collective fails within its group timeout
+  run multichip_4x timeout 240 python -m $P.demo.multichip --nproc 4 \
+      --full --timeout 200 --out $O/multichip_4x.json
+  run multichip_4x_parity timeout 90 python -m $P.demo.multichip \
+      --nproc 4 --timeout 60 --out $O/multichip_4x_parity.json
+  run scaling_4x timeout 360 python -m $P.cli.scaling --nproc 4 --size 64 \
+      --nflows 8 --nsplit 3 --growth 512 --depth 12 --batch 16 --steps 5 \
+      --timeout 330 --out $O/scaling_4x.json
+  run multiproc_4x timeout 120 sh -c "python -m $P.parallel.multiproc \
+      --launch 4 --timeout 90 > $O/multiproc_4x.json"
 fi
 cat $O/steps.txt

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from .codec import interleaved as IL
+from .codec.cdf import NBINS, lower_bin
 from .codec.container import pack_streams, pack_streams_many, unpack_streams
 from .codec.cuda_rans import decode_ring_words
 from .demo import stress
@@ -61,6 +62,7 @@ from .train.optim import build_optimizer
 from .train.trainer import flow_loss, make_multi_train_step, make_train_step
 from .utils.graphs import pool_bytes
 from .utils.profiling import (
+    device_label,
     device_peak_tflops,
     fence,
     profile_busy,
@@ -278,6 +280,35 @@ def coded_shapes(codec, sizes):
             out.add((S, IL._plan_steps(fold * p.z_ch * p.h * p.w, S),
                      level > 0))
     return [list(s) for s in sorted(out)]
+
+
+def message(n: int, seed: int, device):
+    """n symbols (bins v, means, scales) drawn from a seeded logistic model
+    whose scales span the prior's range; every 997th symbol is pushed out
+    of its window, and wide scales push out more."""
+    g = np.random.default_rng(seed)
+    means = g.uniform(-1.0, 1.0, n).astype(np.float32)
+    scales = np.exp(g.uniform(-6.24, 1.0, n)).astype(np.float32)
+    v = np.round((means + scales * g.logistic(0, 1, n)) * 256).astype(np.int32)
+    v[::997] += 3000
+    return [torch.from_numpy(a).to(device) for a in (v, means, scales)]
+
+
+def clamped_message(S: int, k: int, seed: int, device, C: int = 0):
+    """[k, S] (or [C, k, S]) window-clamped bins, means, scales and window
+    lower bounds of `message`: the kernels' checking inputs."""
+    shape = (C, k, S) if C else (k, S)
+    v, m, s = (t.reshape(shape) for t in message(math.prod(shape), seed,
+                                                    device))
+    lower = lower_bin(m)
+    return torch.minimum(torch.maximum(v, lower), lower + NBINS - 1), m, s, \
+        lower
+
+
+def max_err(pairs) -> int:
+    """The largest integer difference over (kernel, plain) tensor pairs."""
+    return max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+               for a, b in pairs)
 
 
 def launch_round_trip_s(device, samples: int = 10) -> float:
@@ -580,7 +611,7 @@ def bench_native_baseline(v, means, scales, max_n: int = 300000) -> float:
 
 
 def power_limit_w(label: str):
-    """The power limit in watts of `demo.device_label`'s nvidia-smi line
+    """The power limit in watts of `utils.profiling.device_label`'s nvidia-smi line
     ("NVIDIA H100 80GB HBM3, 700.00 W"), or None."""
     try:
         return float(label.rsplit(",", 1)[1].strip().split()[0])
@@ -603,7 +634,7 @@ def on_cpu(line: dict) -> dict:
 
 
 def main(argv=None) -> dict:
-    from .demo import device_label, write_new
+    from .demo import write_new
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",

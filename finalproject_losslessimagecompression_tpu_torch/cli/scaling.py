@@ -15,8 +15,11 @@ is one rank.  Rank 0 writes the artifact.
 Where ranks share a card or cores the honest metric is `overhead` mode
 (fixed total compute: the cost of sharding and of the collectives); with
 a card per rank, `weak` mode measures the north star (>=85% efficiency
-1 -> N).  Both are recorded, and a run without two cards of its own says
-that weak scaling on hardware is unmeasured.
+1 -> N).  Both are recorded, and `weak_scaling_on_hardware` says which
+the run could show: measured, naming the cards (nvidia-smi's name and
+power limit of each) and the backend, where every rank had a card of its
+own and there were at least two; unmeasured otherwise.  With fewer cards
+than ranks and no `--backend gloo` it raises before spawning.
 """
 
 from __future__ import annotations
@@ -60,14 +63,28 @@ def _rank_device(args):
     return None
 
 
+def weak_scaling_stamp(cards, backend: str) -> str:
+    """`weak_scaling_on_hardware` for ranks on `cards`: each rank's (card
+    id, nvidia-smi's name and power limit of it), or None for a rank on
+    the CPU."""
+    ids = [c[0] for c in cards if c is not None]
+    if len(set(ids)) < 2 or len(set(ids)) != len(cards):
+        return ("unmeasured (fewer than two cards of their own; the `weak` "
+                "numbers below share a card or the CPU and must NOT be read "
+                "against the >=85% north star)")
+    return (f"measured on {len(ids)} cards of their own ("
+            + "; ".join(label for _, label in cards)
+            + f"), backend {backend}")
+
+
 def run_rank(args) -> None:
     """One rank's part: join the group, measure, rank 0 writes."""
     import torch
-    import torch.distributed as dist
 
     from ..models import CouplingCfg, DenseBlockCfg, FlowCfg, IDFlow
-    from ..parallel.mesh import init_distributed, make_mesh
+    from ..parallel.mesh import init_distributed, make_mesh, shutdown
     from ..parallel.scaling import measure_scaling
+    from ..utils.profiling import device_label
 
     torch.set_num_threads(max(1, (os.cpu_count() or 1)
                               // int(os.environ["WORLD_SIZE"])))
@@ -79,15 +96,17 @@ def run_rank(args) -> None:
                   prior_nn=nn)
     model = IDFlow(cfg, device=device, seed=0)
     everyone = make_mesh(device=device)
-    cards = everyone.all_gather_object(str(device) if device.type == "cuda"
-                                       else None)
+    cards = everyone.all_gather_object(
+        (str(torch.cuda.get_device_properties(device).uuid),
+         device_label(device)) if device.type == "cuda" else None)
     out = {
         "platform": "gpu" if device.type == "cuda" else "cpu",
         "device_name": (torch.cuda.get_device_name(device)
                         if device.type == "cuda" else "cpu"),
         "backend": everyone.backend,
         "n_devices": everyone.size,
-        "distinct_cards": len({c for c in cards if c is not None}),
+        "distinct_cards": len({c[0] for c in cards if c is not None}),
+        "cards": [None if c is None else c[1] for c in cards],
         "physical_cores": os.cpu_count(),
         "model": {"H": args.size, "W": args.size, "nflows": args.nflows,
                   "nsplit": args.nsplit, "growth": args.growth,
@@ -101,11 +120,8 @@ def run_rank(args) -> None:
             "by the shared hardware and reported for completeness only."
         ),
     }
-    if out["distinct_cards"] < 2:
-        out["weak_scaling_on_hardware"] = (
-            "unmeasured (fewer than two cards of their own; the `weak` "
-            "numbers below share one card or the CPU and must NOT be read "
-            "against the >=85% north star)")
+    out["weak_scaling_on_hardware"] = weak_scaling_stamp(cards,
+                                                         everyone.backend)
     for mode in ("overhead", "weak"):
         res = measure_scaling(model, per_device_batch=args.batch,
                               steps=args.steps, mode=mode)
@@ -113,7 +129,7 @@ def run_rank(args) -> None:
     if everyone.rank == 0:
         with open(args.out, "w") as f:
             json.dump(out, f, indent=1)
-    dist.destroy_process_group()
+    shutdown()
 
 
 def main(argv=None):
@@ -121,8 +137,9 @@ def main(argv=None):
     if "RANK" in os.environ:
         run_rank(args)
         return None
-    from ..parallel.multiproc import spawn_ranks
+    from ..parallel.multiproc import check_cards, spawn_ranks
 
+    check_cards(args.nproc, args.device, args.backend)
     spawn_ranks(run_rank, args.nproc, (args,), timeout_s=args.timeout)
     with open(args.out) as f:
         out = json.load(f)

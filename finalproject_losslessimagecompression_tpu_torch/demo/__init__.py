@@ -25,33 +25,10 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
-
-import torch
 
 # the repository root: the committed corpora live under ROOT/demo
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-
-
-def device_label(device) -> str:
-    """'cpu', or the card as `nvidia-smi --query-gpu=name,power.limit`
-    gives it (its name and power limit)."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        return device.type
-    index = device.index if device.index is not None else 0
-    try:
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader", f"--id={index}"],
-            capture_output=True, text=True, check=True, timeout=60,
-        ).stdout.strip().splitlines()
-    except (OSError, subprocess.SubprocessError):
-        out = []
-    if out:
-        return out[0]
-    return f"{torch.cuda.get_device_name(index)}, power limit not read"
 
 
 def write_new(path: str, obj) -> str:

@@ -23,7 +23,8 @@ import tempfile
 
 from ..cli.train import build_trainer, load_config
 from ..models.idflow import resolve_device
-from . import device_label, write_new
+from ..utils.profiling import device_label
+from . import write_new
 
 
 def run(config: str, ckpt: str, batches: int = 2, device=None) -> dict:

@@ -42,7 +42,8 @@ import numpy as np
 
 from ..cli import codec as CC
 from ..models.idflow import resolve_device
-from . import device_label, write_new
+from ..utils.profiling import device_label
+from . import write_new
 from .make_corpus import KINDS, committed_dir, write_corpus
 
 

@@ -39,7 +39,8 @@ import torch
 from .. import bench
 from ..models.config import CouplingCfg, DenseBlockCfg, FlowCfg
 from ..models.idflow import IDFlow, resolve_device
-from . import device_label, write_new
+from ..utils.profiling import device_label
+from . import write_new
 
 VARIANTS = (
     ("flagship_parity_session_A", {}),

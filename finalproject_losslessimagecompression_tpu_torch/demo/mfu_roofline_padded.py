@@ -35,7 +35,8 @@ from ..models.config import with_growth_multiple
 from ..models.exact import FlowCodec
 from ..models.idflow import IDFlow, resolve_device
 from ..models.layers import pad_growth_params
-from . import device_label, write_new
+from ..utils.profiling import device_label
+from . import write_new
 
 
 def padded_model(cfg, state_dict, multiple: int, device):

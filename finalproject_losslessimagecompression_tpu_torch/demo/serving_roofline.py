@@ -51,7 +51,8 @@ from ..codec.cuda_rans import check_streams, rans_decode, rans_encode
 from ..models.exact import FlowCodec
 from ..models.idflow import resolve_device
 from ..ops.reshape import depth_to_space
-from . import device_label, write_new
+from ..utils.profiling import device_label
+from . import write_new
 
 
 def _median(fn, iters: int, device):

@@ -40,7 +40,8 @@ from ..codec import interleaved as IL
 from ..codec.cdf import NBINS, lower_bin_np
 from ..codec.container import pack_streams, unpack_streams
 from ..models.idflow import resolve_device
-from . import device_label, write_new
+from ..utils.profiling import device_label
+from . import write_new
 
 # shared memory one CTA may hold on an H100 (227 KB, opt-in)
 CTA_SMEM_BYTES = 227 * 1024

@@ -11,11 +11,14 @@ a `data` index form a group of their own.
 
 Collectives.  Gloo's all_gather, gather and reduce take CPU tensors only,
 so under gloo a CUDA tensor is staged through the host (`Mesh._to_comm`);
-NCCL takes the CUDA tensor itself.  The mesh counts its collectives and
-the host seconds they took, which is what the scale-out numbers report as
-collective time: under gloo on a card the staging copies, the transfer
+NCCL takes the CUDA tensor itself.  The mesh counts the collectives
+Python calls and the host seconds they took (`comm_calls`, `comm_s`).
+Under gloo that is the collective time: the staging copies, the transfer
 and the wait for the slower rank, the rank's own queued work having been
-synchronised before the clock starts; under NCCL the time to enqueue.
+synchronised before the clock starts.  Under NCCL it is only the time to
+enqueue, and a collective replayed inside a captured CUDA graph does not
+pass through Python at all, so the scale-out numbers take NCCL's time
+from the device instead (`utils.profiling.collective_ms`).
 
 Failures.  A rank that raises while the others wait in a collective
 would hang them until the group's timeout, so a check that can fail on
@@ -27,6 +30,7 @@ fails instead of stalling.
 
 from __future__ import annotations
 
+import gc
 import math
 import os
 import socket
@@ -126,6 +130,19 @@ def init_distributed(backend: Optional[str] = None, device=None,
                 f"two ranks share one GPU under NCCL: {seen}; give each "
                 "rank its own card, or ask for backend='gloo'")
     return device
+
+
+def shutdown() -> None:
+    """End the process group.  NCCL cannot destroy a communicator while a
+    CUDA graph holding one of its collectives is alive (the destroy waits
+    on the graph's work: four NCCL ranks hung there), and a captured step
+    outlives its last reference (a `GraphedStep` holds its body, a bound
+    method of the object that holds the step: a cycle), so garbage is
+    collected and the card synchronised first."""
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    dist.destroy_process_group()
 
 
 class _AllReduceSum(torch.autograd.Function):

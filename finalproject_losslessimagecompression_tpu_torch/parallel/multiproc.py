@@ -40,6 +40,9 @@ import time
 from typing import List
 
 PACKAGE = "finalproject_losslessimagecompression_tpu_torch"
+# train steps a rank takes at least: the eager first, the capturing second
+# and one or more whose collective time is measured
+MIN_STEPS = 3
 
 
 def free_port() -> int:
@@ -55,6 +58,25 @@ def torchrun_env(rank: int, world: int, port: int) -> dict:
     return {"RANK": str(rank), "WORLD_SIZE": str(world),
             "LOCAL_RANK": str(rank), "MASTER_ADDR": "localhost",
             "MASTER_PORT": str(port)}
+
+
+def check_cards(nprocs: int, device=None, backend: str | None = None) -> None:
+    """Raise, before anything is spawned, where `nprocs` ranks on `device`
+    cannot run: no card where one is asked for (the default), or fewer
+    cards than ranks where each rank takes a card of its own (the default
+    device under NCCL; `backend="gloo"` lets ranks share the cards)."""
+    import torch
+
+    from ..models.idflow import resolve_device
+
+    if resolve_device(device).type != "cuda" or device is not None \
+            or backend == "gloo":
+        return
+    if torch.cuda.device_count() < nprocs:
+        raise RuntimeError(
+            f"{nprocs} ranks need a card each, {torch.cuda.device_count()} "
+            "visible; NCCL refuses two ranks on one card (ask for "
+            "backend='gloo' to share them)")
 
 
 def _rank_entry(i: int, fn, world: int, port: int, args) -> None:
@@ -150,6 +172,8 @@ def worker_main(argv: List[str] | None = None) -> None:
     ap.add_argument("--backend", type=str, default=None,
                     help="default: nccl on a card, gloo on the CPU")
     args = ap.parse_args(argv)
+    if args.steps < MIN_STEPS:
+        ap.error(f"--steps {args.steps}: at least {MIN_STEPS}")
 
     import numpy as np
     import torch
@@ -159,7 +183,8 @@ def worker_main(argv: List[str] | None = None) -> None:
     from ..models.exact import FlowCodec
     from ..models.idflow import IDFlow
     from ..train.optim import build_optimizer
-    from .mesh import init_distributed, make_mesh
+    from ..utils.profiling import collective_ms
+    from .mesh import init_distributed, make_mesh, shutdown
     from .sharding import make_sharded_train_step
 
     torch.set_num_threads(1)
@@ -190,12 +215,22 @@ def worker_main(argv: List[str] | None = None) -> None:
     step = make_sharded_train_step(model, opt, mesh)
 
     losses, covered = [], set()
-    for _ in range(args.steps):
-        local = next(loader)
-        covered.update(int(v) for v in np.round(local[:, 0, 0, 0] * 256.0))
-        # each rank trains on its local shard of the global batch; the
-        # step all_reduces the gradients over the whole mesh
-        losses.append(float(step.local(local)))
+
+    def train(steps):
+        for _ in range(steps):
+            local = next(loader)
+            covered.update(int(v)
+                           for v in np.round(local[:, 0, 0, 0] * 256.0))
+            # each rank trains on its local shard of the global batch; the
+            # step all_reduces the gradients over the whole mesh
+            losses.append(float(step.local(local)))
+
+    # collective time per step over the steps after the eager first and
+    # the capturing second: the NCCL kernels' device time under NCCL, the
+    # mesh's host seconds under gloo
+    train(2)
+    collective = collective_ms(mesh, lambda: train(args.steps - 2),
+                               args.steps - 2)
 
     # coding phase: each rank compresses its own image shard with the
     # trained params, chip-locally; the reference coder codes the same
@@ -219,11 +254,13 @@ def worker_main(argv: List[str] | None = None) -> None:
         "covered_indices": sorted(covered),
         "n_samples": n_samples,
         "collective_calls": mesh.comm_calls,
-        "collective_s": mesh.comm_s,
+        "collective_steps": args.steps - 2,
+        **collective,
     }
     with open(args.out, "w") as f:
         json.dump(report, f)
-    dist.destroy_process_group()
+    del train, step  # the captured step's graph goes before the group
+    shutdown()
 
 
 def reference_main(argv: List[str] | None = None) -> None:
@@ -289,10 +326,11 @@ def launch(num_processes: int = 2, steps: int = 8, local_batch: int = 4,
     The ranks and the reference coder run on `device`: by default the
     card of index LOCAL_RANK for each rank (NCCL, one card per rank; it
     raises where there are fewer cards than ranks), a named card shared by
-    every rank with backend="gloo", or the CPU with device="cpu" (gloo)."""
-    from ..models.idflow import resolve_device
-
-    resolve_device(device)  # raises here, before spawning, without a card
+    every rank with backend="gloo", or the CPU with device="cpu" (gloo).
+    Each rank takes `steps` >= MIN_STEPS train steps."""
+    if steps < MIN_STEPS:
+        raise ValueError(f"steps={steps}: at least {MIN_STEPS}")
+    check_cards(num_processes, device, backend)  # before spawning
     tmp = tempfile.mkdtemp(prefix="lic_multiproc_")
     repo_root = os.path.dirname(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -387,6 +425,9 @@ def _launch(module, env, tmp, num_processes, steps, local_batch, timeout_s,
             "union_size": len(set().union(*cov)),
         },
         "wall_s": round(time.time() - t0, 2),
+        "collective_time": [{k: v for k, v in r.items()
+                             if k.startswith("collective_")}
+                            for r in reports],
         "collectives": f"{reports[0]['backend']} on "
                        f"{[r['device'] for r in reports]}, one process per "
                        "rank (parallel.mesh.init_distributed from the "

@@ -5,11 +5,22 @@ and reports efficiency.  Every rank of an initialised group calls it;
 rank 0's times are the result, returned on every rank.  On the card each
 timed window is CUDA events around `steps` steps, ended by a synchronize;
 on the CPU, the host clock around steps ended by a loss fetch.
+
+Collective time is measured where it happens.  Under NCCL a captured
+step's all_reduce is replayed inside the CUDA graph, and an eager one only
+enqueues from the host, so the mesh's host count sees nothing of the
+transfer: `collective_device_ms` is the NCCL kernels' device time in one
+profiled window.  Under gloo the collectives run on the host (staged
+there from a card), and `collective_host_ms` is the mesh's host seconds
+in them.  Either is read per step over up to PROFILED_STEPS more steps
+after the timed ones (`utils.profiling.collective_ms`), and only the one
+that was measured is written.
 """
 
 from __future__ import annotations
 
 import copy
+import gc
 import time
 from typing import Dict, List, Optional
 
@@ -18,8 +29,11 @@ import torch
 
 from ..models.idflow import IDFlow
 from ..train.optim import build_optimizer
+from ..utils.profiling import collective_ms
 from .mesh import make_mesh, mesh_shape_for
 from .sharding import make_sharded_train_step
+
+PROFILED_STEPS = 3  # a flagship step traces ~20,000 kernels
 
 
 def _timed_steps(step, x, steps: int, device: torch.device) -> float:
@@ -61,9 +75,8 @@ def measure_scaling(
     at fixed total compute (1.0 = the machinery adds nothing).
 
     Each sub-mesh trains a copy of `model` with Adamax 1e-3 on the same
-    seeded batch.  `collective_ms` is the host time per step in
-    collectives, measured by the mesh (under NCCL: the time to enqueue
-    them)."""
+    seeded batch.  Collective time per step: `collective_device_ms` under
+    NCCL, `collective_host_ms` under gloo (module docstring)."""
     if mode not in ("weak", "overhead"):
         raise ValueError(f"mode {mode!r}: weak or overhead")
     cfg = model.cfg
@@ -91,8 +104,10 @@ def measure_scaling(
             opt = build_optimizer(m.parameters(),
                                   {"name": "Adamax", "lr": 1e-3}, None, 1)
             step = make_sharded_train_step(m, opt, mesh)
-            float(step(x))  # one untimed step: allocator, cuDNN handles
-            comm0 = mesh.comm_s
+            # two untimed steps: the first runs eagerly (allocator, cuDNN
+            # handles), the second captures the step where it is captured
+            for _ in range(2):
+                float(step(x))
             dt = _timed_steps(step, x, steps, model.device)
             ips = B / dt
             if base is None:
@@ -102,8 +117,15 @@ def measure_scaling(
                 "efficiency": (ips / base if mode == "overhead"
                                else ips / (base * nd)),
                 "step_ms": dt * 1e3,
-                "collective_ms": (mesh.comm_s - comm0) / steps * 1e3,
             }
+            n = min(steps, PROFILED_STEPS)
+            results[nd].update(collective_ms(
+                mesh, lambda: [step(x) for _ in range(n)], n))
+            # the step and its graph form a reference cycle: collect it, so
+            # that its graph and memory pool go before the next capture
             del m, opt, step
+            gc.collect()
+            if model.device.type == "cuda":
+                torch.cuda.empty_cache()
         everyone.agree(True)  # the next sub-mesh starts together
     return everyone.all_gather_object(results)[0]

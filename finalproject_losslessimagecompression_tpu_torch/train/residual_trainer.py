@@ -82,6 +82,17 @@ from .trainer import at_interval, rank0_writer
 LN2 = math.log(2.0)
 
 
+@torch.no_grad()
+def residual_inputs(vqvae, data: torch.Tensor, cfg):
+    """data [B, H, W, C] -> (patches, rec_patches, rec): the residual
+    against the frozen VQ-VAE's grid-rounded reconstruction, and that
+    reconstruction, in the flow's (cfg.H, cfg.W) patches."""
+    rec = vqvae.reconstruct((data - 0.5) / 0.5) * 0.5 + 0.5
+    rec = round_to_grid(rec, cfg.nbits)
+    return (patch_split(data - rec, cfg.H, cfg.W),
+            patch_split(rec, cfg.H, cfg.W), rec)
+
+
 @TRAINERS.register(name="ResidualTrainer")
 class ResidualTrainer:
     """Config shape: the `train` subtree of configs/resflow*.yaml."""
@@ -188,18 +199,14 @@ class ResidualTrainer:
 
     # -- steps ------------------------------------------------------------
 
-    @torch.no_grad()
     def _prepare(self, data: torch.Tensor):
         """data [B, H, W, C] -> (patches, rec_patches or None, rec or
-        None): the residual against the grid-rounded VQ reconstruction,
-        and that reconstruction, in flow-sized patches."""
+        None): `residual_inputs`, or the data's own patches without a
+        VQ-VAE."""
         cfg = self.cfg
         if self.nouse_vqvae:
             return patch_split(data, cfg.H, cfg.W), None, None
-        rec = self.vqvae.reconstruct((data - 0.5) / 0.5) * 0.5 + 0.5
-        rec = round_to_grid(rec, cfg.nbits)
-        return (patch_split(data - rec, cfg.H, cfg.W),
-                patch_split(rec, cfg.H, cfg.W), rec)
+        return residual_inputs(self.vqvae, data, cfg)
 
     def loss_fn(self, patches: torch.Tensor, rec_patches=None):
         """(mean NLL in nats/dim, aux) of a patch batch."""

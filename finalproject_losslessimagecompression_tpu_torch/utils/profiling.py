@@ -20,6 +20,10 @@
 - `profile_busy(run, unprofiled_wall, want)`: one profiled call of run()
   on the card: its kernels, the device's busy seconds, its idle share of
   the wall, and the rANS launches the profiler recorded.
+- `collective_ms(mesh, run, steps)`: collective time per step, the NCCL
+  kernels' device time over NCCL, the mesh's host seconds over gloo.
+- `device_label(device)`: the card as nvidia-smi names it (its name and
+  power limit), for every recorded result.
 
 The JAX package's `enable_compile_cache` (XLA's persistent compilation
 cache) has no counterpart here: eager PyTorch compiles no program, and the
@@ -31,6 +35,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import subprocess
 import time
 from collections import defaultdict
 from typing import Dict, Iterator, Optional, Tuple
@@ -202,3 +207,53 @@ def profile_busy(run, unprofiled_wall: float, want=None, label="profile"):
             "device_idle_share": 1.0 - busy_s / wall,
             "device_idle_share_unprofiled": 1.0 - busy_s / unprofiled_wall,
             "rans_calls": calls, "traces": attempt}
+
+
+def collective_ms(mesh, run, steps: int) -> Dict[str, float]:
+    """Collective time per step of the `steps` steps that run() takes:
+    {"collective_device_ms": ...} over NCCL, the device time of the NCCL
+    kernels in one torch.profiler window of run() (the profiler records
+    the kernels of replayed CUDA graphs too: a captured step's all_reduce
+    never passes through Python again, and an eager one only enqueues
+    from the host); {"collective_host_ms": ...} over gloo, the mesh's host
+    seconds in collectives during run().  Raises where the profiler
+    recorded no device time at all."""
+    if steps < 1:
+        raise ValueError(f"collective time over {steps} steps")
+    if mesh.backend != "nccl":
+        comm0 = mesh.comm_s
+        run()
+        return {"collective_host_ms": (mesh.comm_s - comm0) / steps * 1e3}
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernels = kernel_times(prof)
+    if not kernels:
+        raise AssertionError("the profiler recorded no device time")
+    return {"collective_device_ms": sum(
+        us for name, us, _ in kernels if "nccl" in name.lower())
+        / steps / 1e3}
+
+
+def device_label(device) -> str:
+    """'cpu', or the card as `nvidia-smi --query-gpu=name,power.limit`
+    gives it (its name and power limit)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return device.type
+    index = device.index if device.index is not None else 0
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader", f"--id={index}"],
+            capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.strip().splitlines()
+    except (OSError, subprocess.SubprocessError):
+        out = []
+    if out:
+        return out[0]
+    return f"{torch.cuda.get_device_name(index)}, power limit not read"

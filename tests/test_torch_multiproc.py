@@ -40,3 +40,10 @@ def test_launch_runs_on_the_card_unless_the_cpu_is_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch(num_processes=2)
+
+
+def test_launch_needs_a_measured_step():
+    # each rank's first step runs eagerly and its second captures, so the
+    # collective time needs a third: fewer steps raise before spawning
+    with pytest.raises(ValueError, match="at least 3"):
+        launch(num_processes=2, steps=2, device="cpu")

@@ -5,6 +5,8 @@ share this machine's cores, so the numbers measure nothing of a card."""
 import json
 import os
 
+import pytest
+
 from finalproject_losslessimagecompression_tpu_torch.cli import scaling
 from finalproject_losslessimagecompression_tpu_torch.parallel.multiproc import (  # noqa: E501
     spawn_ranks,
@@ -53,11 +55,13 @@ def test_measure_scaling_both_modes(tmp_path):
         for r in res[mode].values():
             assert r["images_per_s"] > 0
             assert r["efficiency"] > 0
-            assert r["collective_ms"] >= 0
+            # gloo: the mesh's host seconds; device time is NCCL's only
+            assert r["collective_host_ms"] >= 0
+            assert "collective_device_ms" not in r
         assert res[mode]["1"]["efficiency"] == 1.0
         # one rank runs no collective; two all_reduce every step
-        assert res[mode]["1"]["collective_ms"] == 0.0
-        assert res[mode]["2"]["collective_ms"] > 0
+        assert res[mode]["1"]["collective_host_ms"] == 0.0
+        assert res[mode]["2"]["collective_host_ms"] > 0
 
 
 def test_cli_writes_the_artifact_with_weak_scaling_unmeasured(tmp_path):
@@ -72,7 +76,35 @@ def test_cli_writes_the_artifact_with_weak_scaling_unmeasured(tmp_path):
         assert json.load(f) == out
     assert out["platform"] == "cpu" and out["backend"] == "gloo"
     assert out["n_devices"] == 2 and out["distinct_cards"] == 0
+    assert out["cards"] == [None, None]
     assert out["weak_scaling_on_hardware"].startswith("unmeasured")
     for mode in ("overhead", "weak"):
         assert set(out[mode]) == {"1", "2"}
         assert all(r["images_per_s"] > 0 for r in out[mode].values())
+
+
+class _HostMesh:
+    """A gloo mesh's collective count: each call of `collective` adds its
+    host seconds to `comm_s`."""
+    backend = "gloo"
+    comm_s = 0.5
+
+    def collective(self, s):
+        self.comm_s += s
+
+
+def test_collective_ms_is_per_step_and_names_what_it_measured():
+    """utils.profiling.collective_ms over gloo: the mesh's host seconds
+    during run(), per step, under the host's name (the device's name is
+    NCCL's only); zero steps measure nothing and raise."""
+    from finalproject_losslessimagecompression_tpu_torch.utils.profiling import (  # noqa: E501
+        collective_ms,
+    )
+
+    mesh = _HostMesh()
+    out = collective_ms(mesh, lambda: [mesh.collective(0.004)
+                                       for _ in range(2)], 2)
+    assert out.keys() == {"collective_host_ms"}
+    assert out["collective_host_ms"] == pytest.approx(4.0)
+    with pytest.raises(ValueError, match="0 steps"):
+        collective_ms(mesh, lambda: None, 0)
