@@ -838,21 +838,19 @@ def phase_e2e(batch: int = 16, queue: int = 4):
     # device, against the wrappers' counts (a replay's capture tally)
     res["profile"] = profile_pass(
         lambda: codec.decompress_many(codec.compress_many(xs), fetch=True),
-        wall, want=launches)
+        want=launches)
     return res
 
 
-def profile_pass(run, unprofiled_wall: float, phase: str = "profile",
-                 top: int = 12, want=None):
+def profile_pass(run, phase: str = "profile", top: int = 12, want=None):
     """torch.profiler over one queue pass `run()` (`profile_busy`): device
     time by kernel name, of the convolutions and of the rANS kernels, and
-    the share of wall time the device sat idle, against the profiled
-    pass's own wall time and against the unprofiled pass's.  `want`
+    the share of the profiled pass's wall the device sat idle.  `want`
     ({kernel: launches}): the rANS launches the profiler must record in
     the pass (measured on the device, replayed graphs included), traced
     again up to three times where the profiler dropped records.  Emits and
     returns the record."""
-    busy = profile_busy(run, unprofiled_wall, want=want, label=phase)
+    busy = profile_busy(run, want=want, label=phase)
     kernels = busy.pop("kernels")
     rans_us = sum(us for name, us, _ in kernels
                   if any(n in name for n in ENC + DEC))
@@ -862,8 +860,6 @@ def profile_pass(run, unprofiled_wall: float, phase: str = "profile",
            "traces": busy["traces"],
            "conv_device_ms": conv_ms(kernels),
            "device_idle_share": busy["device_idle_share"],
-           "device_idle_share_unprofiled":
-           busy["device_idle_share_unprofiled"],
            "top": [{"name": name[:80], "device_ms": us / 1e3, "calls": n}
                    for name, us, n in kernels[:top]]}
     emit(res)
@@ -970,14 +966,13 @@ def modes_agree(wrappers, fused, level, xs, xs_np, n_launch):
             "images_per_s": {k: images / min(v) for k, v in walls.items()}}
 
 
-def idle_shares(walls, fused, xs, n_launch, prefix=""):
-    """The fused mode's device idle share over its best unprofiled wall,
-    from a profiled queue pass (`<prefix>fused_profile`) that must record
-    `n_launch` launches of each rANS kernel; returns {"fused": profile}.
-    (The level mode's launches are counted by its wrappers; its traced
-    eager pass cost more time than the number says.)"""
+def idle_shares(fused, xs, n_launch, prefix=""):
+    """The fused mode's device idle share over a profiled queue pass
+    (`<prefix>fused_profile`) that must record `n_launch` launches of each
+    rANS kernel; returns {"fused": profile}.  (The level mode's launches
+    are counted by its wrappers; its traced eager pass cost more time than
+    the number says.)"""
     return {"fused": profile_pass(lambda: round_trip(fused, xs),
-                                  min(walls["fused"]),
                                   phase=f"{prefix}fused_profile", top=6,
                                   want=each(n_launch))}
 
@@ -1048,9 +1043,8 @@ def fused_residual(wrappers, batch: int = 16, queue: int = 4):
     xs = [torch.from_numpy(x).cuda() for x in xs_np]
     round_trip(level, xs)  # cuDNN plans of the VQ-VAE and the flows
     out = modes_agree(wrappers, fused, level, xs, xs_np, cfg.nsplit)
-    profiles = idle_shares(out["wall_s"], fused, xs, cfg.nsplit,
-                           "residual_")
-    out["idle_share"] = {k: p["device_idle_share_unprofiled"]
+    profiles = idle_shares(fused, xs, cfg.nsplit, "residual_")
+    out["idle_share"] = {k: p["device_idle_share"]
                          for k, p in profiles.items()}
     out["profiled_launches"] = {k: p["rans_calls"]
                                 for k, p in profiles.items()}
@@ -1109,8 +1103,8 @@ def phase_fused(wrappers, batch: int = 16, queue: int = 4):
         assert all(np.array_equal(g.cpu().numpy(), x)
                    for g, x in zip(got, want)), "a replay overwrote a result"
     flagship["aliasing_check"] = True
-    profiles = idle_shares(flagship["wall_s"], fused, xs, cfg.nsplit)
-    idle = {k: p["device_idle_share_unprofiled"]
+    profiles = idle_shares(fused, xs, cfg.nsplit)
+    idle = {k: p["device_idle_share"]
             for k, p in profiles.items()}
     flagship["profiled_launches"] = {k: p["rans_calls"]
                                      for k, p in profiles.items()}
@@ -1345,18 +1339,15 @@ def call_seconds(run, reps: int) -> float:
     return (time.perf_counter() - t0) / reps
 
 
-def profile_step(run, label: str, unprofiled_s: float, top: int = 8):
+def profile_step(run, label: str, top: int = 8):
     """torch.profiler over one call of run() (`profile_busy`): device busy
-    seconds and idle share of its wall (and of the unprofiled call's),
-    kernel launches, the top kernels (kernels only, user annotations
-    excluded)."""
-    busy = profile_busy(run, unprofiled_s, label=label)
+    seconds and idle share of its wall, kernel launches, the top kernels
+    (kernels only, user annotations excluded)."""
+    busy = profile_busy(run, label=label)
     kernels = busy["kernels"]
     return {"profile": label, "wall_s": busy["wall_s"],
             "device_busy_s": busy["device_busy_s"],
             "device_idle_share": busy["device_idle_share"],
-            "device_idle_share_unprofiled":
-            busy["device_idle_share_unprofiled"],
             "kernel_launches": sum(n for _, _, n in kernels),
             "top": [{"name": name[:80], "device_ms": us / 1e3, "calls": n}
                     for name, us, n in kernels[:top]]}
@@ -1408,8 +1399,7 @@ def against_eager(label, t, step, build, calls, drive_eager,
                               ("eager", eager_s, None)):
         # the replay profiled; an eager call traced (tens of thousands of
         # launches) cost more host time than its idle share told
-        prof = {} if run is None else profile_step(run, f"{label}_{mode}",
-                                                   call_s)
+        prof = {} if run is None else profile_step(run, f"{label}_{mode}")
         step_s = call_s / updates
         out[mode] = {"step_s": step_s, "images_per_s": images / call_s,
                      "achieved_tflops": flops / step_s / 1e12 if flops
@@ -1593,9 +1583,9 @@ def phase_cli(wrappers):
         name: profile_pass(
             lambda p=p: [command(v, flow_srcs, False, p)
                          for v in ("compress", "decompress")],
-            sum(c["ok_s"] for c in warm_cmds), phase=f"cli_profile_{name}",
-            top=6, want=each(len(batches) * cfg.nsplit))
-        for name, p, warm_cmds in (("fused", pipe, [cmds[2], cmds[5]]),)}
+            phase=f"cli_profile_{name}", top=6,
+            want=each(len(batches) * cfg.nsplit))
+        for name, p in (("fused", pipe),)}
     distinct = distinct_layouts(command, (pipe, level_pipe), flow_srcs,
                                 cfg.nsplit)
     one_shot = one_shot_commands(config, ckpt, flow_srcs, len(batches)
@@ -1618,7 +1608,7 @@ def phase_cli(wrappers):
            "decompress_files_per_s": len(flow_srcs) / dec,
            "decompress_tiles_per_s": tiles / dec,
            "level_commands": level_cmds,
-           "idle_share": {name: prof["device_idle_share_unprofiled"]
+           "idle_share": {name: prof["device_idle_share"]
                           for name, prof in profiles.items()},
            "profiled_launches": {name: prof["rans_calls"]
                                  for name, prof in profiles.items()},
@@ -1755,7 +1745,7 @@ def phase_residual(wrappers, batch: int = 16, queue: int = 4):
     emit(out)
     out["profile"] = profile_pass(
         lambda: res.decompress_many(res.compress_many(xs), fetch=True),
-        wall, phase="residual_profile", want=launches)
+        phase="residual_profile", want=launches)
 
     # the same pipeline through the CLI, the VQ checkpoint written here
     flow_ckpt = save_params(flow, os.path.join(CLI_DIR, "resflow.ckpt"))
@@ -2141,7 +2131,7 @@ def phase_twolevel(wrappers, batch: int = 4, queue: int = 2):
     emit(res)
     profile_pass(lambda: codec.decompress_many(codec.compress_many(xs),
                                                fetch=True),
-                 wall, phase="twolevel_profile")
+                 phase="twolevel_profile")
     return res, model
 
 
@@ -2519,7 +2509,7 @@ def phase_padded(wrappers, flagship, e2e, multiples=(16, 64),
         prof = profile_pass(
             lambda: pcodec.decompress_many(pcodec.compress_many(xs),
                                            fetch=True),
-            wall, phase=f"padded_profile_{mult}", top=8, want=launches)
+            phase=f"padded_profile_{mult}", top=8, want=launches)
         passes.append({
             "growth_multiple": mult, "bit_exact": True,
             "images_per_s": batch * queue / wall, "wall_s": wall,
@@ -2530,8 +2520,7 @@ def phase_padded(wrappers, flagship, e2e, multiples=(16, 64),
             "conv_device_ms": prof["conv_device_ms"],
             "rans_calls": prof["rans_calls"],
             "device_busy_s": prof["device_busy_s"],
-            "device_idle_share_unprofiled":
-            prof["device_idle_share_unprofiled"],
+            "device_idle_share": prof["device_idle_share"],
             "growth_per_layer": growths(padded)})
         del padded, pcodec
     res = {"phase": "padded", "batch": batch, "queue": queue,

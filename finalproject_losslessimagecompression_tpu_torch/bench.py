@@ -92,7 +92,7 @@ DEVICE_KEYS = (
     "peak_mem_gb", "codec_device_sym_per_s", "codec_device_plain_sym_per_s",
     "codec_device_kernel_sym_per_s", "codec_large_plain_sym_per_s",
     "codec_large_kernel_sym_per_s", "codec_large_ring_windowed",
-    "vs_baseline", "device_idle_share", "device_idle_share_unprofiled",
+    "vs_baseline", "device_idle_share",
     "capture_s", "graph_pool_bytes",
     "power_limit_w",
 )
@@ -244,8 +244,8 @@ def bench_e2e(cfg, model, batch: int, iters: int, queue: int = 4) -> dict:
         if set(launches.values()) != {nl}:
             raise AssertionError(f"a queue pass launched {launches}, not "
                                  f"{nl} of each kernel")
-        busy = profile_busy(lambda: _round_trip(codec, xs), wall,
-                            want=launches, label="bench_e2e")
+        busy = profile_busy(lambda: _round_trip(codec, xs), want=launches,
+                            label="bench_e2e")
     return {
         "images_per_s": batch * queue / wall,
         "wall_s": wall,
@@ -259,11 +259,9 @@ def bench_e2e(cfg, model, batch: int, iters: int, queue: int = 4) -> dict:
         "capture_s": codec.capture_seconds,
         "graph_pool_bytes": (pool_bytes(codec.graph_pool)
                              if device.type == "cuda" else None),
-        # the idle share of the profiled pass's own wall, and of the
-        # timed passes' median wall (the profiler's tracing lengthens
-        # kernels, so on a saturated card the latter can fall below 0)
-        **{k: None if busy is None else busy[k] for k in (
-            "device_idle_share", "device_idle_share_unprofiled")},
+        # the idle share of the profiled pass's own wall
+        "device_idle_share": None if busy is None else busy[
+            "device_idle_share"],
         "launches_per_pass": launches,
         "kernel_shapes": coded_shapes(codec, [batch]),
     }
@@ -715,7 +713,6 @@ def main(argv=None) -> dict:
         "capture_s": e2e["capture_s"],
         "graph_pool_bytes": e2e["graph_pool_bytes"],
         "device_idle_share": e2e["device_idle_share"],
-        "device_idle_share_unprofiled": e2e["device_idle_share_unprofiled"],
         "e2e_launches_per_pass": e2e["launches_per_pass"],
         "e2e_containers_sha256": e2e["containers_sha256"],
         "kernel_shapes": sorted(

@@ -38,6 +38,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .cdf import NBINS, PRECISION
 from .interleaved import EncodedStreams, _plan_steps
 from .native import CSRC_DIR, build_native
@@ -169,35 +170,40 @@ def pack_streams_many(encs) -> list:
     """Serialize several encodes with one device-to-host copy: every
     container's states, counts and full word buffer are concatenated on the
     device and fetched together.  Only containers with out-of-window
-    escapes (rare) pay one more fetch for their side channel."""
-    parts = []
-    for e in encs:
-        dev = e.words.device
-        parts += [
-            e.state_hi, e.state_lo,
-            torch.as_tensor(e.num_words, device=dev).reshape(1),
-            torch.as_tensor(e.oow_count, device=dev).reshape(1),
-            e.words,
-        ]
-    flat = torch.cat([p.to(torch.int64).reshape(-1) for p in parts])
-    flat = flat.cpu().numpy()
-    out, pos = [], 0
-    for e in encs:
-        S, cap = e.num_streams, e.words.shape[0]
-        hi = flat[pos : pos + S]
-        lo = flat[pos + S : pos + 2 * S]
-        nw, oc = int(flat[pos + 2 * S]), int(flat[pos + 2 * S + 1])
-        words = flat[pos + 2 * S + 2 : pos + 2 * S + 2 + cap]
-        pos += 2 * S + 2 + cap
-        oow = b""
-        if oc:
-            mask = e.oow_mask.cpu().numpy()
-            idx = np.nonzero(mask)[0]
-            vals = e.orig_values.cpu().numpy()[idx]
-            oow = (np.asarray(idx, "<u4").tobytes()
-                   + np.asarray(vals, "<i4").tobytes())
-        out.append(_pack_fetched(e, hi, lo, words, nw, oc, oow))
-    return out
+    escapes (rare) pay one more fetch for their side channel.  The call is
+    the program span `codec.pack`, each blocking copy a `codec.sync`."""
+    with span("codec.pack"):
+        parts = []
+        for e in encs:
+            dev = e.words.device
+            parts += [
+                e.state_hi, e.state_lo,
+                torch.as_tensor(e.num_words, device=dev).reshape(1),
+                torch.as_tensor(e.oow_count, device=dev).reshape(1),
+                e.words,
+            ]
+        flat = torch.cat([p.to(torch.int64).reshape(-1) for p in parts])
+        with span("codec.sync"):
+            flat = flat.cpu().numpy()
+        out, pos = [], 0
+        for e in encs:
+            S, cap = e.num_streams, e.words.shape[0]
+            hi = flat[pos : pos + S]
+            lo = flat[pos + S : pos + 2 * S]
+            nw, oc = int(flat[pos + 2 * S]), int(flat[pos + 2 * S + 1])
+            words = flat[pos + 2 * S + 2 : pos + 2 * S + 2 + cap]
+            pos += 2 * S + 2 + cap
+            oow = b""
+            if oc:
+                with span("codec.sync"):
+                    mask = e.oow_mask.cpu().numpy()
+                    orig = e.orig_values.cpu().numpy()
+                idx = np.nonzero(mask)[0]
+                vals = orig[idx]
+                oow = (np.asarray(idx, "<u4").tobytes()
+                       + np.asarray(vals, "<i4").tobytes())
+            out.append(_pack_fetched(e, hi, lo, words, nw, oc, oow))
+        return out
 
 
 def pack_streams(enc: EncodedStreams) -> bytes:

@@ -53,6 +53,29 @@ the CPU, as JAX picks "fused" on its accelerator.
   a parameter tensor needs a new codec.  The containers are byte-identical
   across the modes.
 
+Counters and spans.  `captures`, `capture_seconds`, `replays`,
+`eager_calls`, `evictions` and `level_fallbacks` count what the fused
+mode did; each counted event is also a program span of the same name
+(`utils.profiling.span`: a `record_function` range on the profiler's
+timeline while it records, nothing otherwise).  The spans, at the host
+boundaries of the two calls (none inside a captured pipeline, whose
+replay runs no Python):
+- `codec.compress`: all of `compress_many`;
+- `codec.decompress`: all of `decompress_many`, the check or fetch
+  included (a ResidualCodec opens it around the flow's decode alone);
+- `codec.unpack`: the containers' parse, validation and padded form;
+- `codec.stage`: pinning and host-to-device copies, the images' upload
+  and the static inputs' fill;
+- `codec.replay`: a graph's `replay()` call; `codec.clone`: its outputs'
+  copy;
+- `codec.eager`: a signature's first, eager call, the level path and the
+  CPU's fused pipeline; `codec.capture`: a warm-up and capture;
+  `codec.evict`: a graph dropped from the cache; `codec.level_fallback`: a
+  queue decoded by level for its escapes;
+- `codec.pack` (`container.pack_streams_many`) and `codec.fetch`: the
+  host side of the one device-to-host copy each, whose blocking copy is
+  a `codec.sync` (the host waiting on the card), as is the state check.
+
 Host syncs.  `compress_many` queues every level of every batch (or replays
 one graph) and then packs all containers with one device-to-host copy;
 `decompress_many` queues every decode (the containers go up through pinned,
@@ -91,6 +114,7 @@ from ..codec.interleaved import (
     to_device,
 )
 from ..ops.reshape import depth_to_space, space_to_depth
+from ..utils.profiling import span
 from .idflow import IDFlow, fold_batch, unfold_batch
 
 
@@ -107,7 +131,7 @@ GRANULARITIES = ("fused", "level", "nn")
 
 def _remember(cache: OrderedDict, key, value, limit: int) -> None:
     """Put key last in an LRU cache and drop the least recently used
-    entries past `limit` (a dropped graph's tensors go back to the pool)."""
+    entries past `limit`."""
     cache[key] = value
     cache.move_to_end(key)
     while len(cache) > limit:
@@ -167,6 +191,9 @@ class FlowCodec:
         self.level_fallbacks = 0  # fused decompress queues decoded by level
         self.graphs = self.device.type == "cuda"  # "fused" as CUDA graphs
         self.captures = 0  # graphs captured
+        self.replays = 0  # graph replays, a capturing call's included
+        self.eager_calls = 0  # pipelines run op by op (`codec.eager`)
+        self.evictions = 0  # graphs dropped past MAX_GRAPHS
         self.capture_seconds = 0.0  # warm-ups and captures of the graphs
         self.graph_pool = None  # the graphs' memory pool, at first capture
         self._seen = OrderedDict()  # signatures met once, not captured
@@ -313,27 +340,47 @@ class FlowCodec:
         own values and replays.  The graphs are kept least recently used
         first, at most MAX_GRAPHS of them; a replay's outputs are cloned."""
         if not self.graphs:
-            return pipeline(*args)
+            return self._eager(lambda: pipeline(*args))
         entry = self._graphs.get(key)
         if entry is None and key not in self._seen:
             _remember(self._seen, key, None, self.MAX_SEEN)
-            return pipeline(*[None if a is None else [
-                to_device(t, self.device) for t in a] for a in args])
+
+            def first():
+                with span("codec.stage"):
+                    staged = [None if a is None else [
+                        to_device(t, self.device) for t in a] for a in args]
+                return pipeline(*staged)
+
+            return self._eager(first)
         if entry is None:
             del self._seen[key]
             inputs = [None if a is None else [
                 torch.empty(t.shape, dtype=t.dtype, device=self.device)
                 for t in a] for a in args]
             self._fill(inputs, args)
-            graph, outputs = self._capture(lambda: pipeline(*inputs))
+            with span("codec.capture"):
+                graph, outputs = self._capture(lambda: pipeline(*inputs))
             entry = (graph, inputs, outputs)
-            _remember(self._graphs, key, entry, self.MAX_GRAPHS)
+            self._graphs[key] = entry
+            while len(self._graphs) > self.MAX_GRAPHS:
+                with span("codec.evict"):
+                    self.evictions += 1
+                    self._graphs.popitem(last=False)
         else:
             self._graphs.move_to_end(key)
             self._fill(entry[1], args)
         graph, _, outputs = entry
-        graph.replay()
-        return _cloned(outputs)
+        with span("codec.replay"):
+            graph.replay()
+        self.replays += 1
+        with span("codec.clone"):
+            return _cloned(outputs)
+
+    def _eager(self, run):
+        """run(), a pipeline op by op: counted in `eager_calls`."""
+        with span("codec.eager"):
+            self.eager_calls += 1
+            return run()
 
     def _capture(self, run):
         """(CountedGraph, outputs) of `run()` captured on the codec's
@@ -361,11 +408,12 @@ class FlowCodec:
     def _fill(static, args) -> None:
         """Copy each arg's tensors into the static inputs (host tensors
         to the card from pinned memory, without blocking the host)."""
-        for dsts, srcs in zip(static, args):
-            for dst, src in zip(dsts or (), srcs or ()):
-                if dst.device.type == "cuda" and src.device.type == "cpu":
-                    src = src.pin_memory()
-                dst.copy_(src, non_blocking=True)
+        with span("codec.stage"):
+            for dsts, srcs in zip(static, args):
+                for dst, src in zip(dsts or (), srcs or ()):
+                    if dst.device.type == "cuda" and src.device.type == "cpu":
+                        src = src.pin_memory()
+                    dst.copy_(src, non_blocking=True)
 
     # ------------------------------------------------------------------
     # compress
@@ -374,15 +422,16 @@ class FlowCodec:
     def _compress_deferred_many(self, xs, conds=None):
         """Queue the whole encode of a queue of batches without a host
         sync; returns [(per-level EncodedStreams, info)] per batch."""
-        xs = [torch.as_tensor(x, dtype=torch.float32, device=self.device)
-              for x in xs]
-        conds = self._conds_on_device(conds, len(xs))
+        with span("codec.stage"):
+            xs = [torch.as_tensor(x, dtype=torch.float32, device=self.device)
+                  for x in xs]
+            conds = self._conds_on_device(conds, len(xs))
         if self.granularity == "fused":
             key = ("compress", tuple(int(x.shape[0]) for x in xs),
                    conds is not None)
             encs = self._fused(key, (xs, conds), self.compress_pipeline)
         else:
-            encs = self.compress_pipeline(xs, conds)
+            encs = self._eager(lambda: self.compress_pipeline(xs, conds))
         return [(e, {"batch": int(x.shape[0])}) for e, x in zip(encs, xs)]
 
     def compress(self, x, cond=None) -> Tuple[List[bytes], dict]:
@@ -393,13 +442,15 @@ class FlowCodec:
     def compress_many(self, xs, conds=None):
         """Serving encode: queue every batch, then pack every container with
         one host sync.  Returns a list of (blobs, info)."""
-        per_batch = self._compress_deferred_many(xs, conds)
-        blobs = pack_streams_many([e for encs, _ in per_batch for e in encs])
-        out, pos = [], 0
-        for encs, info in per_batch:
-            out.append((blobs[pos : pos + len(encs)], info))
-            pos += len(encs)
-        return out
+        with span("codec.compress"):
+            per_batch = self._compress_deferred_many(xs, conds)
+            blobs = pack_streams_many([e for encs, _ in per_batch
+                                       for e in encs])
+            out, pos = [], 0
+            for encs, info in per_batch:
+                out.append((blobs[pos : pos + len(encs)], info))
+                pos += len(encs)
+            return out
 
     # ------------------------------------------------------------------
     # decompress
@@ -429,13 +480,16 @@ class FlowCodec:
         device."""
         batches = [info["batch"] for _, info in packed]
         folds = [1 if self.cfg.batch_squeeze else b for b in batches]
-        encs = [self._unpack_checked(blobs, fold)
-                for (blobs, _), fold in zip(packed, folds)]
-        conds = self._conds_on_device(conds, len(packed))
-        # one layout for every path: the containers' padded forms, escapes
-        # padded to MAX_OUTLIERS (or to a container's own count past it)
-        host, layouts = pad_many([e for es in encs for e in es],
-                                 self.MAX_OUTLIERS)
+        with span("codec.unpack"):
+            encs = [self._unpack_checked(blobs, fold)
+                    for (blobs, _), fold in zip(packed, folds)]
+            # one layout for every path: the containers' padded forms,
+            # escapes padded to MAX_OUTLIERS (or to a container's own
+            # count past it)
+            host, layouts = pad_many([e for es in encs for e in es],
+                                     self.MAX_OUTLIERS)
+        with span("codec.stage"):
+            conds = self._conds_on_device(conds, len(packed))
         nl = self.cfg.nsplit
 
         def pipeline(flat, sconds):
@@ -444,13 +498,20 @@ class FlowCodec:
                 [views[b * nl:(b + 1) * nl] for b in range(len(batches))],
                 batches, sconds)
 
-        if self.granularity == "fused":
-            if all(m == self.MAX_OUTLIERS for _, _, m in layouts):
-                key = ("decompress", tuple(batches), conds is not None,
-                       self.MAX_OUTLIERS)
-                return self._fused(key, ([host], conds), pipeline)
+        def level():
+            with span("codec.stage"):
+                flat = to_device(host, self.device)
+            return pipeline([flat], conds)
+
+        if self.granularity != "fused":
+            return self._eager(level)
+        if all(m == self.MAX_OUTLIERS for _, _, m in layouts):
+            key = ("decompress", tuple(batches), conds is not None,
+                   self.MAX_OUTLIERS)
+            return self._fused(key, ([host], conds), pipeline)
+        with span("codec.level_fallback"):
             self.level_fallbacks += 1
-        return pipeline([to_device(host, self.device)], conds)
+            return self._eager(level)
 
     @staticmethod
     def _check_got(got) -> None:
@@ -460,15 +521,18 @@ class FlowCodec:
 
     def _fetch(self, xs, oks):
         """One device-to-host copy of the decoded batches and the flags."""
-        flat = torch.cat([x.reshape(-1) for x in xs]
-                         + [torch.stack(oks).to(torch.float32)])
-        host = flat.cpu().numpy()
-        self._check_got([host[host.size - len(oks):] == 1.0])
-        out, pos = [], 0
-        for x in xs:
-            out.append(host[pos : pos + x.numel()].reshape(tuple(x.shape)))
-            pos += x.numel()
-        return out
+        with span("codec.fetch"):
+            flat = torch.cat([x.reshape(-1) for x in xs]
+                             + [torch.stack(oks).to(torch.float32)])
+            with span("codec.sync"):
+                host = flat.cpu().numpy()
+            self._check_got([host[host.size - len(oks):] == 1.0])
+            out, pos = [], 0
+            for x in xs:
+                out.append(host[pos : pos + x.numel()].reshape(
+                    tuple(x.shape)))
+                pos += x.numel()
+            return out
 
     def decompress(self, blobs: Sequence[bytes], info: dict, cond=None,
                    fetch: bool = False):
@@ -484,11 +548,19 @@ class FlowCodec:
         for a conditional flow): queue every batch's decode, level-major,
         then verify all state invariants with one host sync (fetch=True
         also returns the batches, as numpy, in that sync)."""
-        xs, oks = self._decompress_deferred_many(packed, conds)
-        if fetch:
-            return self._fetch(xs, oks)
-        self._check_got([bool(torch.stack(oks).all())])
-        return xs
+        with span("codec.decompress"):
+            xs, oks = self._decompress_deferred_many(packed, conds)
+            if fetch:
+                return self._fetch(xs, oks)
+            self._check_oks(oks)
+            return xs
+
+    @classmethod
+    def _check_oks(cls, oks) -> None:
+        """The state invariants' flags, in one blocking copy."""
+        with span("codec.sync"):
+            got = bool(torch.stack(oks).all())
+        cls._check_got([got])
 
     # ------------------------------------------------------------------
 

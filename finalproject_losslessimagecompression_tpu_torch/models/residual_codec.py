@@ -20,6 +20,13 @@ each way; the VQ encode and the reconstruction run eagerly.
 
 Index stream cost: ceil(log2(K)) bits per index, counted in coded_bits and
 real_bpd.
+
+Program spans (`utils.profiling.span`; the flow's own are FlowCodec's):
+`residual.compress` and `residual.decompress`, all of each call;
+`residual.vq_encode` (`_encode_idx`); `residual.reconstruct`
+(`_rec_from_idx`, both directions); `residual.index_pack` (the indices'
+device-to-host copy, a `codec.sync`, then the bit packing);
+`residual.index_unpack` (the bit unpacking and the indices' upload).
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import torch
 
 from ..ops.reshape import patch_merge, patch_split
 from ..ops.rounding import round_to_grid
+from ..utils.profiling import span
 from .exact import FlowCodec, set_deterministic_cuda
 from .vqvae import VQVAE
 
@@ -104,16 +112,18 @@ class ResidualCodec:
 
     @torch.no_grad()
     def _encode_idx(self, x: torch.Tensor) -> torch.Tensor:
-        vq_x, _, idx, _, _ = self.vqvae.encode((x - 0.5) / 0.5)
-        b, hh, ww, _ = vq_x.shape
-        return idx.reshape(b, hh, ww)
+        with span("residual.vq_encode"):
+            vq_x, _, idx, _, _ = self.vqvae.encode((x - 0.5) / 0.5)
+            b, hh, ww, _ = vq_x.shape
+            return idx.reshape(b, hh, ww)
 
     @torch.no_grad()
     def _rec_from_idx(self, idx: torch.Tensor) -> torch.Tensor:
         """The conditioning reconstruction of [B, h, w] indices."""
-        vq_x = self.vqvae.vq.codebook[idx.to(torch.int64)]
-        rec = self.vqvae.decode(vq_x)
-        return round_to_grid(rec * 0.5 + 0.5, self.codec.cfg.nbits)
+        with span("residual.reconstruct"):
+            vq_x = self.vqvae.vq.codebook[idx.to(torch.int64)]
+            rec = self.vqvae.decode(vq_x)
+            return round_to_grid(rec * 0.5 + 0.5, self.codec.cfg.nbits)
 
     def _tiles(self, t: torch.Tensor) -> torch.Tensor:
         cfg = self.codec.cfg
@@ -134,44 +144,55 @@ class ResidualCodec:
         the host), and the indices come to the host in one more copy.
         Byte-identical to per-batch compress.  Returns a list of
         (idx_blob, blobs, info)."""
-        H, W = self.input_size
-        idxs, res, conds = [], [], []
-        for x in xs:
-            x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
-            if tuple(x.shape[1:3]) != (H, W):
-                raise ValueError(f"batch of {tuple(x.shape[1:3])} images, "
-                                 f"codec input size {(H, W)}")
-            idx = self._encode_idx(x)
-            rec = self._rec_from_idx(idx)
-            idxs.append(idx)
-            res.append(self._tiles(x - rec))
-            conds.append(self._tiles(rec))
-        packed = self.codec.compress_many(res, conds)
-        host = torch.cat([i.reshape(-1) for i in idxs]).cpu().numpy()
-        out, pos = [], 0
-        for idx, x, (blobs, info) in zip(idxs, xs, packed):
-            n = idx.numel()
-            idx_blob = _pack_indices(host[pos:pos + n].reshape(idx.shape),
-                                     self.K)
-            pos += n
-            out.append((idx_blob, blobs, {**info, "images": int(x.shape[0])}))
-        return out
+        with span("residual.compress"):
+            H, W = self.input_size
+            idxs, res, conds = [], [], []
+            for x in xs:
+                with span("codec.stage"):
+                    x = torch.as_tensor(x, dtype=torch.float32,
+                                        device=self.device)
+                if tuple(x.shape[1:3]) != (H, W):
+                    raise ValueError(f"batch of {tuple(x.shape[1:3])} "
+                                     f"images, codec input size {(H, W)}")
+                idx = self._encode_idx(x)
+                rec = self._rec_from_idx(idx)
+                idxs.append(idx)
+                res.append(self._tiles(x - rec))
+                conds.append(self._tiles(rec))
+            packed = self.codec.compress_many(res, conds)
+            out = []
+            with span("residual.index_pack"):
+                flat = torch.cat([i.reshape(-1) for i in idxs])
+                with span("codec.sync"):
+                    host = flat.cpu().numpy()
+                pos = 0
+                for idx, x, (blobs, info) in zip(idxs, xs, packed):
+                    n = idx.numel()
+                    idx_blob = _pack_indices(
+                        host[pos:pos + n].reshape(idx.shape), self.K)
+                    pos += n
+                    out.append((idx_blob, blobs,
+                                {**info, "images": int(x.shape[0])}))
+            return out
 
     @torch.no_grad()
     def _decompress_deferred_many(self, packed):
         H, W = self.input_size
-        idx_np = [_unpack_indices(idx_blob)[0] for idx_blob, _, _ in packed]
-        flat = torch.from_numpy(np.concatenate([i.reshape(-1)
-                                                for i in idx_np]))
-        flat = flat.to(self.device)  # one copy up for every batch
+        with span("residual.index_unpack"):
+            idx_np = [_unpack_indices(idx_blob)[0]
+                      for idx_blob, _, _ in packed]
+            flat = torch.from_numpy(np.concatenate([i.reshape(-1)
+                                                    for i in idx_np]))
+            flat = flat.to(self.device)  # one copy up for every batch
         recs, pos = [], 0
         for i in idx_np:
             recs.append(self._rec_from_idx(
                 flat[pos:pos + i.size].reshape(i.shape)))
             pos += i.size
-        tiles, oks = self.codec._decompress_deferred_many(
-            [(blobs, info) for _, blobs, info in packed],
-            [self._tiles(r) for r in recs])
+        with span("codec.decompress"):
+            tiles, oks = self.codec._decompress_deferred_many(
+                [(blobs, info) for _, blobs, info in packed],
+                [self._tiles(r) for r in recs])
         return [patch_merge(t, H, W) + r for t, r in zip(tiles, recs)], oks
 
     def decompress(self, idx_blob: bytes, blobs: Sequence[bytes],
@@ -184,11 +205,12 @@ class ResidualCodec:
         """Serving decode of [(idx_blob, blobs, info), ...]: every batch is
         queued, then all state invariants are checked with one host sync
         (fetch=True also returns the batches, as numpy, in that sync)."""
-        xs, oks = self._decompress_deferred_many(packed)
-        if fetch:
-            return self.codec._fetch(xs, oks)
-        FlowCodec._check_got([bool(torch.stack(oks).all())])
-        return xs
+        with span("residual.decompress"):
+            xs, oks = self._decompress_deferred_many(packed)
+            if fetch:
+                return self.codec._fetch(xs, oks)
+            FlowCodec._check_oks(oks)
+            return xs
 
     def coded_bits(self, idx_blob: bytes, blobs: Sequence[bytes]) -> int:
         return 8 * len(idx_blob) + FlowCodec.coded_bits(blobs)

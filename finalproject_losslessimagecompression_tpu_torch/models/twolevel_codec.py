@@ -144,7 +144,7 @@ class TwoLevelCodec:
         xs, oks = self._decompress_deferred_many(packed)
         if fetch:
             return self.rough_codec._fetch(xs, oks)
-        FlowCodec._check_got([bool(torch.stack(oks).all())])
+        FlowCodec._check_oks(oks)
         return xs
 
     def real_bpd(self, blobs: Sequence[bytes], info: dict) -> float:

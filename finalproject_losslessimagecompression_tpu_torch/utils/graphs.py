@@ -30,8 +30,15 @@ update count).  The body must update every piece of state in place and
 read nothing back to the host.  A replay's outputs are cloned, so the next
 replay does not overwrite what a caller holds.  `eager` is the whole step
 without a graph, on the current stream (what a captured step is held
-against).  Steps count their captures and capture seconds and report the
-bytes of their graphs' memory pool.
+against).  Steps count their captures and capture seconds, replays and
+eager calls, and report the bytes of their graphs' memory pool.
+
+Program spans (`utils.profiling.span`), none inside the body: `step.call`
+(a call, `eager` included); `step.before` and `step.after`; `step.stage`
+(the static inputs' fill, pinning included); `step.replay`, `step.clone`
+(the outputs' copy); `step.eager` (the body run eagerly) and
+`step.capture`.  A counted event is the span of its name: `replays`,
+`eager_calls`, `captures`.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from typing import Callable, Optional
 import torch
 
 from ..models.exact import set_deterministic_cuda
+from .profiling import span
 
 
 def _signature(args):
@@ -83,6 +91,7 @@ class GraphedStep:
         self.captures = 0
         self.capture_seconds = 0.0
         self.replays = 0
+        self.eager_calls = 0
         self.pool = None
         self._seen = set()
         # signature -> (graph, static inputs, static outputs)
@@ -90,16 +99,20 @@ class GraphedStep:
 
     def eager(self, *args):
         """The step without a graph, on the current stream."""
-        return self._run(lambda: self.body(*args), args)
+        with span("step.call"):
+            return self._run(lambda: self._eager(lambda: self.body(*args)),
+                             args)
 
     def __call__(self, *args):
         if not self.graphs:
             return self.eager(*args)
-        key = _signature(args)
-        if key not in self._graphs and key not in self._seen:
-            self._seen.add(key)
-            return self._run(lambda: self._on_side_stream(args), args)
-        return self._run(lambda: self._replay(key, args), args)
+        with span("step.call"):
+            key = _signature(args)
+            if key not in self._graphs and key not in self._seen:
+                self._seen.add(key)
+                return self._run(lambda: self._eager(
+                    lambda: self._on_side_stream(args)), args)
+            return self._run(lambda: self._replay(key, args), args)
 
     def static_input(self, i: int, like: torch.Tensor) -> torch.Tensor:
         """The static tensor of input i of the graph captured for inputs
@@ -117,26 +130,39 @@ class GraphedStep:
 
     def _run(self, fn, args):
         if self.before is not None:
-            self.before(*args)
+            with span("step.before"):
+                self.before(*args)
         out = fn()
         if self.after is not None:
-            self.after()
+            with span("step.after"):
+                self.after()
         return out
+
+    def _eager(self, run):
+        """run(), the body run eagerly: counted in `eager_calls`."""
+        with span("step.eager"):
+            self.eager_calls += 1
+            return run()
 
     def _replay(self, key, args):
         """Fill the static inputs of the signature's graph (capturing it
         first where there is none) and replay it."""
         if key not in self._graphs:
-            self._graphs[key] = self._capture(args)
+            with span("step.capture"):
+                self._graphs[key] = self._capture(args)
         graph, inputs, outputs = self._graphs[key]
-        for dst, src in zip(inputs, args):
-            if dst is not None and dst is not src:
-                if src.device.type == "cpu" and dst.device.type == "cuda":
-                    src = src.pin_memory()
-                dst.copy_(src, non_blocking=True)
-        graph.replay()
+        with span("step.stage"):
+            for dst, src in zip(inputs, args):
+                if dst is not None and dst is not src:
+                    if src.device.type == "cpu" and \
+                            dst.device.type == "cuda":
+                        src = src.pin_memory()
+                    dst.copy_(src, non_blocking=True)
+        with span("step.replay"):
+            graph.replay()
         self.replays += 1
-        return _cloned(outputs)
+        with span("step.clone"):
+            return _cloned(outputs)
 
     def _on_side_stream(self, args):
         with torch.cuda.device(self.device):

@@ -1,7 +1,16 @@
-"""Timing and FLOP accounting for the trainer.
+"""Timing and FLOP accounting for the trainer and the codecs.
 
-- `PhaseTimer`: accumulating host wall-clock spans with a report and a
-  one-line summary.
+- `span(name)`: a program span at a host boundary of a hot path (the
+  names the codecs and the captured steps open are listed in the module
+  that opens them).  While a torch profiler records, it is a
+  `record_function` range, a host event on the profiler's own timeline
+  beside the device's kernels; while a `PhaseTimer` collects, its
+  seconds are added there too.  Otherwise it is one shared null context.
+  Spans nest: the span open around another is its parent.
+- `PhaseTimer`: accumulating host spans (`time.perf_counter`) with a
+  report and a one-line summary.  Its `phase(name)` is a span that the
+  timer always collects, and while it is open the timer also collects
+  every span opened inside it, under that span's name.
 - `StepClock`: host seconds per training step between log points.
 - `fence(device)`: `torch.cuda.synchronize()` on the card (PyTorch returns
   before the device finishes, so a timed region must end in one), nothing
@@ -17,9 +26,10 @@
   operations and, on the card, its kernels) that writes a Chrome trace.
 - `kernel_times(prof)`: a profile's device kernels by name (time and
   launches), read from the profiler's raw events.
-- `profile_busy(run, unprofiled_wall, want)`: one profiled call of run()
-  on the card: its kernels, the device's busy seconds, its idle share of
-  the wall, and the rANS launches the profiler recorded.
+- `profile_busy(run, want)`: one profiled call of run() on the card: its
+  kernels, the device's busy seconds (the union of its device intervals
+  over the profiled window), its idle share of that window's wall, and
+  the rANS launches the profiler recorded.
 - `collective_ms(mesh, run, steps)`: collective time per step, the NCCL
   kernels' device time over NCCL, the mesh's host seconds over gloo.
 - `device_label(device)`: the card as nvidia-smi names it (its name and
@@ -34,13 +44,20 @@ package's `build/` (`codec/native.py`).
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import os
 import subprocess
 import time
 from collections import defaultdict
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+_NULL = contextlib.nullcontext()
+# the PhaseTimers with a phase open around the current code, outermost first
+_COLLECTING: contextvars.ContextVar = contextvars.ContextVar(
+    "collecting_phase_timers", default=())
 
 
 def fence(device) -> None:
@@ -48,19 +65,48 @@ def fence(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def span(name: str):
+    """A program span (module docstring): a context manager.  With no
+    profiler recording and no PhaseTimer collecting, one shared null
+    context: nothing is entered or allocated."""
+    timers = _COLLECTING.get()
+    if not timers and not _autograd_profiler._is_profiler_enabled:
+        return _NULL
+    return _timed(name, timers, collect=False)
+
+
+@contextlib.contextmanager
+def _timed(name: str, timers: tuple, collect: bool) -> Iterator[None]:
+    """The span's body inside a `record_function` range where a profiler
+    records; its seconds added to each of `timers`, which collect the
+    spans opened inside it where `collect`."""
+    token = _COLLECTING.set(timers) if collect else None
+    rf = (torch.profiler.record_function(name)
+          if _autograd_profiler._is_profiler_enabled else _NULL)
+    t0 = time.perf_counter()
+    try:
+        with rf:
+            yield
+    finally:
+        dt = time.perf_counter() - t0
+        if token is not None:
+            _COLLECTING.reset(token)
+        for timer in timers:
+            timer.totals[name] += dt
+            timer.counts[name] += 1
+
+
 class PhaseTimer:
     def __init__(self):
         self.totals: Dict[str, float] = defaultdict(float)
         self.counts: Dict[str, int] = defaultdict(int)
 
-    @contextlib.contextmanager
-    def phase(self, name: str) -> Iterator[None]:
-        t0 = time.time()
-        try:
-            yield
-        finally:
-            self.totals[name] += time.time() - t0
-            self.counts[name] += 1
+    def phase(self, name: str):
+        """A span this timer collects, with every span inside it."""
+        timers = _COLLECTING.get()
+        if self not in timers:
+            timers += (self,)
+        return _timed(name, timers, collect=True)
 
     def report(self) -> Dict[str, Dict[str, float]]:
         return {
@@ -168,28 +214,64 @@ def rans_calls(kernels) -> Dict[str, int]:
             for n in RANS_KERNELS}
 
 
-def profile_busy(run, unprofiled_wall: float, want=None, label="profile"):
-    """torch.profiler (host and card) over one call of run() on the card:
-    {"kernels": kernel_times' list, "wall_s", "device_busy_s" (the sum of
-    the kernels' device time), "device_idle_share" (1 - busy / the
-    profiled wall), "device_idle_share_unprofiled" (1 - busy /
-    `unprofiled_wall`, the same work's wall without the profiler),
-    "rans_calls", "traces"}.  `want` ({rANS kernel: launches}): the
-    launches the profiler must record in the call, replayed graphs
-    included.  The profiler has dropped a kernel's records before, so a
-    call that records fewer is traced again, three traces at most, and
-    then this raises, as it does for more launches than `want` or a trace
-    without device time."""
-    from torch.profiler import ProfilerActivity, profile
+PROFILED_WINDOW = "profile_busy.window"
+
+
+def device_intervals(prof) -> List[Tuple[int, int]]:
+    """[(start ns, end ns)] of a profile's device operations (kernels and
+    copies; not user annotations, which span their kernels on the device
+    timeline), read from the profiler's raw events."""
+    return [(e.start_ns(), e.end_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation() and e.end_ns() > e.start_ns()]
+
+
+def host_window(prof, name: str) -> Optional[Tuple[int, int]]:
+    """(start ns, end ns) of the profile's host range `name`, None where
+    it has none."""
+    for e in prof.profiler.kineto_results.events():
+        if e.name() == name and e.device_type() != \
+                torch.autograd.DeviceType.CUDA:
+            return e.start_ns(), e.end_ns()
+    return None
+
+
+def busy_seconds(intervals: Sequence[Tuple[int, int]], t0: int,
+                 t1: int) -> float:
+    """Seconds of [t0, t1] (ns) that at least one interval covers: the
+    union, so operations that overlap (streams, copies beside kernels)
+    count once."""
+    total, end = 0, t0
+    for s, t in sorted(intervals):
+        s, t = max(s, end), min(t, t1)
+        if t > s:
+            total += t - s
+            end = t
+    return total / 1e9
+
+
+def profile_busy(run, want=None, label="profile"):
+    """torch.profiler (host and card) over one call of run() on the card,
+    inside a host range `PROFILED_WINDOW` that ends in a synchronise:
+    {"kernels": kernel_times' list, "wall_s" (the window's host seconds),
+    "device_busy_s" (the union of the device intervals inside the
+    window), "device_idle_share" (1 - busy / the window), "rans_calls",
+    "traces"}.  `want` ({rANS kernel: launches}): the launches the
+    profiler must record in the call, replayed graphs included.  The
+    profiler has dropped a kernel's records before, so a call that
+    records fewer is traced again, three traces at most, and then this
+    raises, as it does for more launches than `want` or a trace without
+    device time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     for attempt in range(1, 4):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            t0 = time.time()
-            run()
-            torch.cuda.synchronize()
-            wall = time.time() - t0
+            with record_function(PROFILED_WINDOW):
+                run()
+                torch.cuda.synchronize()
         kernels = kernel_times(prof)
         calls = rans_calls(kernels)
         if want is None or calls == want:
@@ -200,12 +282,13 @@ def profile_busy(run, unprofiled_wall: float, want=None, label="profile"):
     if want is not None and calls != want:
         raise AssertionError(f"{label}: three traces recorded {calls} rANS "
                              f"launches, not {want}")
-    busy_s = sum(us for _, us, _ in kernels) / 1e6
+    t0, t1 = host_window(prof, PROFILED_WINDOW)
+    wall = (t1 - t0) / 1e9
+    busy_s = busy_seconds(device_intervals(prof), t0, t1)
     if busy_s <= 0:
         raise AssertionError(f"{label}: the profiler recorded no device time")
     return {"kernels": kernels, "wall_s": wall, "device_busy_s": busy_s,
             "device_idle_share": 1.0 - busy_s / wall,
-            "device_idle_share_unprofiled": 1.0 - busy_s / unprofiled_wall,
             "rans_calls": calls, "traces": attempt}
 
 
