@@ -296,6 +296,24 @@ nvidia-smi line, and last {"ok": true, "device": {...}}.  Any failure
 raises and exits non-zero; with no CUDA device, or outside the
 repository, it exits non-zero and prints no result.  `--quick` runs
 phases 1-3 only.
+
+3b. dense   the DenseLayer kernel (ops/dense_conv.py) at every launch
+            shape of the two published flows' inference passes (imagenet64
+            at batch 16, resflow-cond-imagenet64's conditional flow at
+            batch 4), recorded from the calls: against its plain version
+            (float32, tolerance 1e-4 of the output's largest magnitude:
+            sums of up to 9 x 520 products in another order), two launches
+            bit-identical, the buffer's other channels untouched (its
+            unused channels hold NaN, which the kernel must never read);
+            device ms of the kernel, the plain version and F.conv2d on
+            cuDNN (`library_ms`), each as CUDA graphs of back-to-back
+            calls, beside the bound at 67 TFLOP/s on the FLOPs the fused
+            layer does.  Then the fused FlowCodec round trip of 4 x 16
+            images bit-exact with the kernels' launch counters' change over
+            one replayed pass equal to 12 layers x 9 blocks x 3 levels x 4
+            batches x 2 directions (and the split-K reduces the shapes
+            predict), and one captured train call launching neither.
+            `--dense` runs phases 1 and 3b only.
 """
 
 import contextlib
@@ -714,6 +732,202 @@ def path_kernels(rows, paths, depth_ns, seed: int = 130):
                                 for s in p["kernel_shapes"]} - have):
         rows.append(kernel_case(S, k, seeded, seed, depth_ns))
         seed += 1
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the DenseLayer kernel
+# ---------------------------------------------------------------------------
+
+DENSE_TOL = 1e-4
+
+
+def dense_launch_shapes(model, x, cond=None):
+    """(buf shape, cin, g, slope) of every DenseLayer launch of one no-grad
+    forward pass of `model` on x (and cond), in call order, recorded from
+    the calls themselves."""
+    from finalproject_losslessimagecompression_tpu_torch.models import layers
+
+    seen = []
+    real = layers.dense_conv3x3
+
+    def record(buf, cin, w, bias_a, b3, slope):
+        seen.append((tuple(buf.shape), cin, w.shape[-1], slope))
+        real(buf, cin, w, bias_a, b3, slope)
+
+    layers.dense_conv3x3 = record
+    try:
+        with torch.no_grad():
+            model(x, cond)
+    finally:
+        layers.dense_conv3x3 = real
+    return seen
+
+
+def graph_ms(fn, reps: int = 10) -> float:
+    """Device ms of one fn() call: `reps` calls captured back to back in
+    one CUDA graph, replayed and timed with CUDA events (no host gaps)."""
+    from finalproject_losslessimagecompression_tpu_torch.codec.cuda_rans import (  # noqa: E501
+        record_launches,
+    )
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), record_launches():
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with record_launches(), torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    _, secs = timed(graph.replay)
+    return secs * 1e3 / reps
+
+
+def dense_case(shape, cin, g, slope, seed: int):
+    """One launch shape: the kernel against its plain version, determinism,
+    untouched channels and the three timings."""
+    from finalproject_losslessimagecompression_tpu_torch.ops import (
+        dense_conv as D,
+    )
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n, h, w, p = shape
+    m = n * h * w
+    buf = torch.randn(shape, generator=gen, device="cuda")
+    buf[..., cin:] = float("nan")
+    wk = torch.randn((9, cin, g), generator=gen, device="cuda") / math.sqrt(
+        9 * cin)
+    bias_a = 0.1 * torch.randn((g, 9), generator=gen, device="cuda")
+    b3 = 0.1 * torch.randn((g,), generator=gen, device="cuda")
+    ref = buf.clone()
+    D.dense_conv3x3_plain(ref, cin, wk, bias_a, b3, slope)
+    outs = []
+    for _ in range(2):
+        out = buf.clone()
+        D.dense_conv3x3(out, cin, wk, bias_a, b3, slope)
+        outs.append(out)
+    torch.cuda.synchronize()
+    got, want = outs[0][..., cin:cin + g], ref[..., cin:cin + g]
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    same_bits = torch.equal(outs[0].view(torch.int32),
+                            outs[1].view(torch.int32))
+    untouched = (torch.equal(outs[0][..., :cin], buf[..., :cin])
+                 and bool(outs[0][..., cin + g:].isnan().all()))
+    ok = err <= DENSE_TOL * max(scale, 1.0) and same_bits and untouched
+    splits = D.split_count(n * h, w, cin, g, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    x_nchw = buf[..., :cin].permute(0, 3, 1, 2).contiguous()
+    w_oihw = wk.reshape(3, 3, cin, g).permute(3, 2, 0, 1).contiguous()
+    flops = 2.0 * m * g * 9 * cin
+    nbytes = 4.0 * (m * (cin + g) + 9 * cin * g)
+    bound_ms, bound_by = bound(nbytes, flops)
+    kernel_ms = graph_ms(
+        lambda: D.dense_conv3x3(outs[1], cin, wk, bias_a, b3, slope))
+    return {"shape": list(shape), "m": m, "cin": cin, "g": g,
+            "slope": slope, "splits": splits, "ok": ok, "max_err": err,
+            "scale": scale, "bits_equal": same_bits, "untouched": untouched,
+            "kernel_ms": kernel_ms,
+            "plain_ms": graph_ms(lambda: D.dense_conv3x3_plain(
+                outs[1], cin, wk, bias_a, b3, slope), 3),
+            "library_ms": graph_ms(
+                lambda: F.conv2d(x_nchw, w_oihw, padding=1)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "tflops": flops / kernel_ms / 1e9,
+            "pct_peak": 100.0 * flops / kernel_ms / 1e-3 / FP32_OPS_PER_S}
+
+
+def cond_flow():
+    """The conditional flow of configs/resflow-cond-imagenet64.yaml at full
+    width (seeded weights, projections perturbed)."""
+    from finalproject_losslessimagecompression_tpu_torch.cli.train import (
+        load_config,
+    )
+    from finalproject_losslessimagecompression_tpu_torch.models import (
+        FlowCfg,
+        IDFlow,
+    )
+
+    train = load_config(os.path.join(ROOT, RES_CONFIG))["train"]
+    return perturbed(IDFlow(FlowCfg.from_ref(train["flows"]), device="cuda",
+                            seed=0))
+
+
+def phase_dense(batch: int = 16, queue: int = 4, request: int = 4):
+    from finalproject_losslessimagecompression_tpu_torch.ops import (
+        dense_conv as D,
+    )
+    from finalproject_losslessimagecompression_tpu_torch.train import (
+        optim,
+        trainer,
+    )
+
+    t0 = time.time()
+    D.build()
+    build_s = time.time() - t0
+    cfg, model, codec = flagship_codec()
+    xs_np = images(batch, queue, seed=7)
+    xs = [torch.from_numpy(x).cuda() for x in xs_np]
+    bulk = dense_launch_shapes(model, xs[0])
+    assert len(bulk) == 12 * (cfg.nflows + 1) * cfg.nsplit, len(bulk)
+    flow = cond_flow()
+    x4 = xs[0][:request]
+    req = dense_launch_shapes(flow, x4, torch.flip(x4, dims=(1,)))
+    del flow
+    cases = []
+    for name, shapes in (("imagenet64", bulk), ("resflow-cond", req)):
+        for i, key in enumerate(dict.fromkeys(shapes)):
+            row = dense_case(*key, seed=500 + i)
+            row["config"] = name
+            row["calls"] = shapes.count(key)
+            cases.append(row)
+            emit({"phase": "dense_case", **row})
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    reduces = sum(D.split_count(s[0] * s[1], s[2], cin, g, sms) > 1
+                  for s, cin, g, _ in bulk)
+    # the fused codec: eager, captured, then one replayed pass counted
+    warm(codec, xs)
+    before = (D.dense_conv3x3.launches, D.splitk_reduce.launches)
+    packed = codec.compress_many(xs)
+    recs = codec.decompress_many(packed, fetch=True)
+    exact = all(np.array_equal(r, x) for r, x in zip(recs, xs_np))
+    launched = (D.dense_conv3x3.launches - before[0],
+                D.splitk_reduce.launches - before[1])
+    want = (len(bulk) * queue * 2, reduces * queue * 2)
+    # one captured train call (a warm-up, a capture, a replay): none
+    with open(os.path.join(ROOT, "lic_bench", "configs",
+                           "imagenet64.json")) as f:
+        c = json.load(f)
+    model.train()
+    opt = optim.build_optimizer(model.parameters(), c["optimizer"],
+                                c["scheduler"], c["step_per_epoch"])
+    multi = trainer.make_multi_train_step(model, opt, 1)
+    before_train = D.dense_conv3x3.launches + D.splitk_reduce.launches
+    for _ in range(3):
+        multi(xs[0][None]).cpu()
+    train_launches = (D.dense_conv3x3.launches + D.splitk_reduce.launches
+                      - before_train)
+    ok = (all(r["ok"] for r in cases) and exact and launched == want
+          and train_launches == 0)
+    out = {"phase": "dense", "ok": ok, "build_s": build_s,
+           "shapes": len(cases), "max_err_rel": max(
+               r["max_err"] / max(r["scale"], 1.0) for r in cases),
+           "round_trip_exact": exact, "launches": launched,
+           "launches_want": want, "train_launches": train_launches,
+           "bulk_kernel_ms_pass": sum(r["kernel_ms"] * r["calls"] for r in
+                                      cases if r["config"] == "imagenet64")
+           * queue * 2,
+           "bulk_library_ms_pass": sum(r["library_ms"] * r["calls"] for r in
+                                       cases if r["config"] == "imagenet64")
+           * queue * 2,
+           "request_kernel_ms": sum(r["kernel_ms"] * r["calls"] for r in
+                                    cases if r["config"] == "resflow-cond")
+           * 2}
+    emit(out)
+    assert ok, out
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3566,8 +3780,13 @@ def main(argv) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     smi = phase_device()
+    if "--dense" in argv:
+        phase_dense()
+        print(smi, flush=True)
+        return 0
     depth_ns = phase_depth()
     rows, _, _ = phase_kernels(depth_ns)
+    phase_dense()
     e2e = fused = train = cli = residual = pipes = tools = scaleout = None
     demo = bench = multichip = None
     if "--quick" not in argv:

@@ -9,8 +9,9 @@ conditioning image to every prior's input: a chain of 4x4 stride-2 convs
 (`conv_for_cond`) or repeated space-to-depth.
 
 Public tensors are NHWC, as in the JAX package; the DenseBlocks compute in
-NCHW inside.  The model lives on the card unless the caller asks for the
-CPU: `IDFlow(cfg)` with no CUDA available raises.
+NCHW inside, or in one NHWC buffer on the card's inference path
+(`layers.DenseBlock`).  The model lives on the card unless the caller asks
+for the CPU: `IDFlow(cfg)` with no CUDA available raises.
 """
 
 from __future__ import annotations

@@ -39,14 +39,6 @@ def coupling_split(channel: int, split: float) -> Tuple[int, int]:
     return a, channel - a
 
 
-def _nn_nhwc(net: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """Run an NCHW network on an NHWC tensor.  The input is made contiguous
-    so that encode and decode, which slice it differently, present cuDNN the
-    same layout and get the same algorithm."""
-    y = net(x.permute(0, 3, 1, 2).contiguous())
-    return y.permute(0, 2, 3, 1)
-
-
 class AdditiveCoupling(nn.Module):
     """za = xa, zb = xb + round_ste(NN(xa)); exactly invertible on the grid."""
 
@@ -60,7 +52,7 @@ class AdditiveCoupling(nn.Module):
     def t(self, xa: torch.Tensor) -> torch.Tensor:
         """The rounded coupling shift of NHWC `xa`: the one function both
         directions of the codec evaluate."""
-        return round_ste(_nn_nhwc(self.dense, xa), self.nbits)
+        return round_ste(self.dense.nhwc(xa), self.nbits)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xa, xb = x[..., : self.a_ch], x[..., self.a_ch:]
@@ -85,7 +77,7 @@ class Prior(nn.Module):
         self.net = DenseBlock(in_ch, 2 * out_ch, cfg, gen)
 
     def forward(self, h: torch.Tensor):
-        p = _nn_nhwc(self.net, h)
+        p = self.net.nhwc(h)
         mean = p[..., : self.out_ch]
         logscale = torch.clamp(p[..., self.out_ch:], min=self.logscale_min)
         return mean, logscale

@@ -1,0 +1,192 @@
+"""The fused DenseLayer's 3x3 convolution on a DenseBlock's growing buffer
+(csrc/dense_conv.cu): build, binding, wrapper and plain version.
+
+`dense_conv3x3(buf, cin, w, bias_a, b3, slope)` computes one fused
+DenseLayer in place: from the channel prefix [0, cin) of the NHWC buffer
+`buf` [N, H, W, P] it writes the layer's g new channels at [cin, cin + g):
+
+    act(conv3x3(x, w, zero padding) + T),  T[y, x, n] = b3[n] + the sum of
+    bias_a[n, t] over the taps t whose input pixel is inside the image
+
+with w [9, cin, g] = W1 . W3 (tap-major), bias_a [g, 9] = W3 . b1 and
+act(v) = max(v, 0) + slope * min(v, 0) (ReLU: slope 0; LeakyReLU: 0.01).
+
+It replaces no Pallas kernel: the JAX package leaves this convolution to
+XLA, as this package's training path leaves it to cuDNN
+(`DenseBlock.concatenate`).  What
+bounds it on an H100: float32 FMA on the SIMT cores (67 TFLOP/s; TF32 is
+off for the codec), with few outputs per layer (M = N*H*W pixels by 42-48
+channels) to spread over 132 SMs.  A thread keeps a row segment of 8
+pixels by 12 channels in registers and multiplies each halo row it loads
+into all three horizontal taps; stages of (8 channels, one tap row) of the
+K dimension go through a cp.async ring in shared memory; K is split over
+several blocks per tile where M is small: `split_count`, a function of the
+launch shape alone.  Each split writes a partial tile, and a second kernel,
+`dense_conv3x3_splitk_reduce_kernel`, sums them in split order and applies
+the epilogue.  No atomics, so a shape gives the same bits on every launch:
+what keeps the codec's compress and decompress bit-exact.
+
+Dispatch is by device: a CUDA buffer launches the kernel (or raises), a CPU
+buffer runs `dense_conv3x3_plain`, which computes the same function with
+`F.conv2d` writing into the slice.  Launch counts: `dense_conv3x3.launches`
+(one a layer) and `splitk_reduce.launches` (one a layer whose K is split),
+tallied into a CUDA graph's capture inside `cuda_rans.record_launches` and
+added on every replay, as the rANS wrappers' are.
+
+The library is built with nvcc at first use into the package's `build/`
+directory (`native.build_native`) and bound with ctypes.  A failed build or
+launch raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+import threading
+
+import torch
+import torch.nn.functional as F
+
+# the rANS wrappers' nvcc lookup, launch check, stream and launch tally
+from ..codec.cuda_rans import _launched, _nvcc, _raise_if, _stream
+from ..codec.native import CSRC_DIR, build_native
+
+_SRC = os.path.join(CSRC_DIR, "dense_conv.cu")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+# the kernel's row segment (kSegPx), segments and channels of a block tile
+# (kSegs, kBN) and input channels of a stage (kKC)
+SEG_PX, TILE_SEGS, TILE_N, STAGE_CH = 8, 32, 48, 8
+TAPS = 9
+# blocks the kernel keeps resident on an SM (its __launch_bounds__)
+BLOCKS_PER_SM = 2
+
+_lock = threading.Lock()
+_lib = None
+
+
+def build() -> str:
+    """Compile the kernels (once per source hash) and return the .so path."""
+    return build_native(_SRC, _nvcc(), NVCC_FLAGS, "dense_conv")
+
+
+def _load():
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            p, i, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.dense_conv3x3_launch.restype = i
+            lib.dense_conv3x3_launch.argtypes = [p] * 5 + [i] * 7 + [f32, p]
+            lib.dense_conv3x3_reduce_launch.restype = i
+            lib.dense_conv3x3_reduce_launch.argtypes = (
+                [p] * 4 + [i] * 7 + [f32, p])
+            _lib = lib
+    return _lib
+
+
+def split_count(rows: int, width: int, cin: int, g: int, sms: int) -> int:
+    """Blocks that share one output tile's K (9 taps x cin channels) in a
+    layer over `rows` = N * H image rows of `width` pixels: enough for one
+    wave of BLOCKS_PER_SM blocks on each of `sms` SMs, and at most one per
+    8 input channels (the three stages of their tap rows)."""
+    segments = rows * -(-width // SEG_PX)
+    tiles = -(-segments // TILE_SEGS) * -(-g // TILE_N)
+    return max(1, min(BLOCKS_PER_SM * sms // tiles, -(-cin // STAGE_CH)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _operands(buf, cin, w, bias_a, b3):
+    """(M, H, W, P, g) of a call; raises on what the kernel does not take."""
+    if buf.dim() != 4:
+        raise ValueError(f"buf: expected [N, H, W, P], got {tuple(buf.shape)}")
+    n, h, wd, p = buf.shape
+    g = w.shape[-1]
+    if not (0 < cin and cin + g <= p):
+        raise ValueError(f"layer channels [0, {cin}) + {g} exceed pitch {p}")
+    for t, name, shape in ((w, "w", (TAPS, cin, g)),
+                           (bias_a, "bias_a", (g, TAPS)), (b3, "b3", (g,))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected shape {shape}, "
+                             f"got {tuple(t.shape)}")
+    return n * h * wd, h, wd, p, g
+
+
+def dense_conv3x3(buf: torch.Tensor, cin: int, w: torch.Tensor,
+                  bias_a: torch.Tensor, b3: torch.Tensor,
+                  slope: float) -> None:
+    """One fused DenseLayer in place (module docstring): reads channels
+    [0, cin) of the NHWC float32 buffer `buf`, writes [cin, cin + g)."""
+    if not buf.is_cuda:
+        return dense_conv3x3_plain(buf, cin, w, bias_a, b3, slope)
+    lib = _load()
+    m, h, wd, p, g = _operands(buf, cin, w, bias_a, b3)
+    dev = buf.device
+    if dev.index != torch.cuda.current_device():
+        raise ValueError(f"buf on {dev}, current device "
+                         f"{torch.cuda.current_device()}")
+    for t, name in ((buf, "buf"), (w, "w"), (bias_a, "bias_a"), (b3, "b3")):
+        if t.dtype != torch.float32 or t.device != dev:
+            raise TypeError(f"{name}: expected float32 on {dev}, got "
+                            f"{t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: must be contiguous")
+    if p % 4 or buf.data_ptr() % 16:
+        raise ValueError("buf: the pitch must be a multiple of 4 floats and "
+                         "the data 16-byte aligned")
+    splits = split_count(m // wd, wd, cin, g, _sms(dev.index))
+    part = buf.new_empty(
+        (splits, m, -(-g // TILE_N) * TILE_N) if splits > 1 else (0,))
+    err = lib.dense_conv3x3_launch(
+        buf.data_ptr(), w.data_ptr(), bias_a.data_ptr(), b3.data_ptr(),
+        part.data_ptr(), m, h, wd, p, cin, g, splits, slope, _stream())
+    _raise_if(err, "dense_conv3x3_fprop_kernel")
+    _launched(dense_conv3x3)
+    if splits > 1:
+        splitk_reduce(lib, buf, part, bias_a, b3, (m, h, wd, p, cin, g),
+                      splits, slope)
+
+
+def splitk_reduce(lib, buf, part, bias_a, b3, shape, splits, slope) -> None:
+    """Launch the reduce of a split call's partials (its own counter)."""
+    err = lib.dense_conv3x3_reduce_launch(
+        buf.data_ptr(), part.data_ptr(), bias_a.data_ptr(), b3.data_ptr(),
+        *shape, splits, slope, _stream())
+    _raise_if(err, "dense_conv3x3_splitk_reduce_kernel")
+    _launched(splitk_reduce)
+
+
+# launch counts: each wrapper adds one where it launches its kernel (or to
+# the tally of a capture in progress), and nowhere else
+dense_conv3x3.launches = 0
+splitk_reduce.launches = 0
+
+
+def dense_conv3x3_plain(buf: torch.Tensor, cin: int, w: torch.Tensor,
+                        bias_a: torch.Tensor, b3: torch.Tensor,
+                        slope: float) -> None:
+    """`dense_conv3x3` in plain PyTorch, on any device: `F.conv2d` over the
+    buffer's prefix, the bias field from the taps' in-bounds masks, written
+    into the layer's slice of the buffer."""
+    _, h, wd, _, g = _operands(buf, cin, w, bias_a, b3)
+    x = buf[..., :cin].permute(0, 3, 1, 2)
+    kernel = w.reshape(3, 3, cin, g).permute(3, 2, 0, 1)
+    y = F.conv2d(x, kernel, padding=1)
+    rows = torch.arange(h, device=buf.device) + torch.arange(
+        -1, 2, device=buf.device)[:, None]
+    cols = torch.arange(wd, device=buf.device) + torch.arange(
+        -1, 2, device=buf.device)[:, None]
+    inside = (((rows >= 0) & (rows < h))[:, None, :, None]
+              & ((cols >= 0) & (cols < wd))[None, :, None, :])  # [3,3,H,W]
+    field = torch.einsum("tyx,gt->gyx",
+                         inside.reshape(TAPS, h, wd).to(y.dtype), bias_a)
+    v = y + (field + b3[:, None, None])
+    out = torch.clamp(v, min=0) + slope * torch.clamp(v, max=0)
+    buf[..., cin:cin + g] = out.permute(0, 2, 3, 1)
