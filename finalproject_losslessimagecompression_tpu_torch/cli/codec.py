@@ -40,12 +40,12 @@ fingerprint: a hash of the model config, the compute variant (fused 1x1,
 dtype, and the backend, torch-cuda or torch-cpu) and the checkpoints'
 bytes.  A container written by another checkpoint, variant, backend or by
 the JAX package fails loudly instead of decoding garbage.  The codecs run
-at `--granularity` (default: the codec's own, so the plain and residual
-flows run "fused" on the card: a command's queue runs eagerly the first
-time its chunk layout is met and as a CUDA graph replay from the second
-time on, at most FlowCodec.MAX_GRAPHS graphs kept; a two-level model runs
-"level", as in JAX); containers are byte-identical across the
-granularities, so the fingerprint carries none, as in JAX.
+at `--granularity` (default: the codec's own, so every pipeline runs
+"fused" on the card: a command's queue runs eagerly the first time its
+chunk layout is met and as a CUDA graph replay from the second time on,
+at most FlowCodec.MAX_GRAPHS graphs kept per flow); containers are
+byte-identical across the granularities, so the fingerprint carries
+none, as in JAX.
 
 Each file is stored as the smaller of the flow container and a stored
 escape (`stored-png`, or `stored-zlib` for channel counts PNG does not take
@@ -283,7 +283,7 @@ def _load_model_timed(config_path, ckpt_path, num_streams, vq_ckpt, dtype,
                          twolevel_params_from_flax)
         fp = _fingerprint(model_cfg, _variant_tag(tcfg, device), ckpt_path)
         return _TwoLevelPipeline(
-            TwoLevelCodec(model, num_streams, granularity or "level"), fp)
+            TwoLevelCodec(model, num_streams, granularity), fp)
     cfg = FlowCfg.from_ref(model_cfg)
     model = _restore(IDFlow(cfg, device=device), ckpt_path, device,
                      params_from_flax)
@@ -707,9 +707,8 @@ def main(argv=None):
     ap.add_argument("--granularity", default=None,
                     choices=["fused", "level", "nn"],
                     help="the codecs' granularity (default: the codec's "
-                    "own, fused on the card and level on the CPU; "
-                    "level for a two-level model); the containers are the "
-                    "same in every mode")
+                    "own, fused on the card and level on the CPU); the "
+                    "containers are the same in every mode")
     args = ap.parse_args(argv)
 
     pipe = _load_model(args.config, args.ckpt, args.num_streams,

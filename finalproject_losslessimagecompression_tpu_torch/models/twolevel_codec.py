@@ -25,6 +25,25 @@ coded; the rough image then averages a few replicated edge rows more than
 the trainer's, a rate detail, since the decoder reads the rough image from
 the stream.  x - unpool(rx) and unpool(rx) + fx are exact in float32 on
 the grid; the two sub-flows keep `FlowCodec`'s determinism contract.
+
+Granularity.  `TwoLevelCodec(model, num_streams, granularity)` hands the
+mode to both sub-flows' FlowCodecs, which resolve it as every FlowCodec
+does: None is "fused" on a CUDA device (each sub-flow's compress and
+decompress of a queue one CUDA graph replay, from a queue signature's
+second call on) and "level" on the CPU.  The containers are
+byte-identical across the modes.  The pyramid's own work (pad, pool,
+round, unpool, tiling and merge) runs eagerly between the sub-flows'
+programs, once per batch.
+
+Counters and spans (`utils.profiling.span`, none inside a captured
+program):
+- `twolevel.split`: `_split`, the compress side's pad, pool, round,
+  unpool and tiling of one batch; counted in `splits`;
+- `twolevel.merge`: the decompress side's unpool, tile merge and crop of
+  one batch; counted in `merges`.
+`tiles` counts the fine tiles split and merged.  The sub-flows' own
+counters and spans (`captures`, `replays`, `eager_calls`, `evictions`,
+`level_fallbacks`) stay on `rough_codec` and `fine_codec`.
 """
 
 from __future__ import annotations
@@ -37,6 +56,7 @@ import torch
 from ..codec.container import pack_streams_many
 from ..ops.reshape import patch_merge, patch_split
 from ..ops.rounding import round_to_grid
+from ..utils.profiling import span
 from .exact import FlowCodec
 from .twolevel import TwoLevelFlow, adaptive_pool_matrix, pad_edge, pool2d
 
@@ -48,18 +68,21 @@ def _coded_dim(padded: int, rough: int, tile: int) -> int:
 
 
 class TwoLevelCodec:
-    """`granularity` goes to both sub-flows' FlowCodecs; its default is
-    JAX's, "level": the fine flow's deterministic cuDNN FFT convolutions
-    run under CUDA graph capture only when a caller asks for "fused"."""
+    """`granularity` goes to both sub-flows' FlowCodecs: None is "fused" on
+    a CUDA device and "level" on the CPU (module docstring)."""
 
     def __init__(self, model: TwoLevelFlow, num_streams: int = 4096,
-                 granularity: str | None = "level"):
+                 granularity: str | None = None):
         cfg = model.cfg
         self.cfg = cfg
         self.model = model
         self.device = model.device
         self.rough_codec = FlowCodec(model.rough, num_streams, granularity)
         self.fine_codec = FlowCodec(model.fine, num_streams, granularity)
+        self.granularity = self.rough_codec.granularity
+        self.splits = 0  # batches split (`twolevel.split`)
+        self.merges = 0  # batches merged (`twolevel.merge`)
+        self.tiles = 0  # fine tiles split and merged
         if cfg.Hp % cfg.rough.H or cfg.Wp % cfg.rough.W:
             self.Hc = _coded_dim(cfg.Hp, cfg.rough.H, cfg.fine.H)
             self.Wc = _coded_dim(cfg.Wp, cfg.rough.W, cfg.fine.W)
@@ -81,11 +104,25 @@ class TwoLevelCodec:
     def _split(self, x: torch.Tensor):
         """-> (rough image, fine tiles) over the coded dims."""
         cfg = self.cfg
-        if not self._own_pool:
-            return self.model.split_levels(x)
-        x = pad_edge(x, self.Hc - cfg.H, self.Wc - cfg.W)
-        rx = round_to_grid(pool2d(x, self._ph, self._pw), cfg.nbits)
-        return rx, patch_split(x - self._unpool(rx), cfg.fine.H, cfg.fine.W)
+        with span("twolevel.split"):
+            self.splits += 1
+            if self._own_pool:
+                x = pad_edge(x, self.Hc - cfg.H, self.Wc - cfg.W)
+                rx = round_to_grid(pool2d(x, self._ph, self._pw), cfg.nbits)
+                px = patch_split(x - self._unpool(rx), cfg.fine.H, cfg.fine.W)
+            else:
+                rx, px = self.model.split_levels(x)
+            self.tiles += int(px.shape[0])
+            return rx, px
+
+    def _merge(self, rx: torch.Tensor, px: torch.Tensor) -> torch.Tensor:
+        """(rough image, fine tiles) -> the batch, cropped."""
+        cfg = self.cfg
+        with span("twolevel.merge"):
+            self.merges += 1
+            self.tiles += int(px.shape[0])
+            x = self._unpool(rx) + patch_merge(px, self.Hc, self.Wc)
+            return x[:, :cfg.H, :cfg.W, :]
 
     # -- compress ---------------------------------------------------------
 
@@ -127,8 +164,7 @@ class TwoLevelCodec:
             [(blobs[:nr], info["rough"]) for blobs, info in packed])
         pxs, oks_f = self.fine_codec._decompress_deferred_many(
             [(blobs[nr:], info["fine"]) for blobs, info in packed])
-        xs = [(self._unpool(rx) + patch_merge(px, self.Hc, self.Wc))[
-            :, :cfg.H, :cfg.W, :] for rx, px in zip(rxs, pxs)]
+        xs = [self._merge(rx, px) for rx, px in zip(rxs, pxs)]
         return xs, oks_r + oks_f
 
     def decompress(self, blobs: Sequence[bytes], info: dict,

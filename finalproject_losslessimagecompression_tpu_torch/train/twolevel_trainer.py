@@ -5,9 +5,11 @@ activations recomputed in the backward pass, `models/twolevel.py`) and
 logs the image bpd and the two levels' (`train bpd`, `train bpd 1`,
 `train bpd 2`), fetched only at the `log_every` cadence.  Eval gives the
 same three on the test batches and, with `test_coding`, compresses and
-decompresses each batch for real through `TwoLevelCodec` (on the card:
-the rANS kernels), logging `real bpd` and `coding errors`; then samples at
-four temperatures.  Checkpoints hold {params, opt_state, step}.
+decompresses each batch for real through `TwoLevelCodec` at its default
+granularity, as the flow trainer's codec does ("fused" on the card: CUDA
+graph replays of both sub-flows and their rANS kernels), logging `real
+bpd` and `coding errors`; then samples at four temperatures.
+Checkpoints hold {params, opt_state, step}.
 
 With `use_mesh: true` over several ranks (see train/trainer.py for the
 batch and checkpoint conventions) each step is data-parallel and eval

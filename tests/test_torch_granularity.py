@@ -401,7 +401,8 @@ def test_graph_cache_is_bounded_least_recently_used_first():
 def test_twolevel_fused_equals_level():
     """TwoLevelCodec passes the granularity to both sub-flows: "fused"
     writes the "level" containers byte for byte, and each decodes the
-    other's exactly.  Its default is JAX's, "level".  Tolerance: exact."""
+    other's exactly.  Its default resolves to "level" on the CPU.
+    Tolerance: exact."""
     tm = _perturbed(TwoLevelFlow(TwoLevelCfg.from_ref(_tl_dict()),
                                  device="cpu", seed=6), 7)
     level = TwoLevelCodec(tm, num_streams=32)
