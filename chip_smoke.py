@@ -146,7 +146,9 @@ Phases, each printing one JSON line:
             seeded weights, projections perturbed: TwoLevelCodec
             compress_many / decompress_many(fetch=True) on a queue of 2
             batches of 4 NaturalSynthetic images, bit-exact, one launch of
-            each kernel per sub-flow; then `twolevel_profile`.
+            each kernel per sub-flow, the DenseLayer kernel's narrow
+            geometry launched once for each fine-flow layer (104 a batch a
+            direction) and for no rough one; then `twolevel_profile`.
 11. twolevel_train  the same config through cli.train at batch 4: 6
             captured steps (the fine flow's recomputation in the graph's
             backward) over epochs of 4 steps, eval of one batch coded
@@ -298,9 +300,13 @@ repository, it exits non-zero and prints no result.  `--quick` runs
 phases 1-3 only.
 
 3b. dense   the DenseLayer kernel (ops/dense_conv.py) at every launch
-            shape of the two published flows' inference passes (imagenet64
-            at batch 16, resflow-cond-imagenet64's conditional flow at
-            batch 4), recorded from the calls: against its plain version
+            shape of the published flows' inference passes (imagenet64 at
+            batch 16, resflow-cond-imagenet64's conditional flow at batch
+            4, config_twolevel's rough and fine sub-flows at batch 4; the
+            fine 4x4 tiles take the narrow geometry, every other shape the
+            wide one) and at four narrow shapes no model launches (W 2 and
+            1, an odd H, g 100), recorded from the calls: against its plain
+            version
             (float32, tolerance 1e-4 of the output's largest magnitude:
             sums of up to 9 x 520 products in another order), two launches
             bit-identical, the buffer's other channels untouched (its
@@ -312,7 +318,8 @@ phases 1-3 only.
             images bit-exact with the kernels' launch counters' change over
             one replayed pass equal to 12 layers x 9 blocks x 3 levels x 4
             batches x 2 directions (and the split-K reduces the shapes
-            predict), and one captured train call launching neither.
+            predict, and no narrow launch), and one captured train call
+            launching neither.
             `--dense` runs phases 1 and 3b only.
 """
 
@@ -757,7 +764,7 @@ def dense_launch_shapes(model, x, cond=None):
     layers.dense_conv3x3 = record
     try:
         with torch.no_grad():
-            model(x, cond)
+            model(x) if cond is None else model(x, cond)
     finally:
         layers.dense_conv3x3 = real
     return seen
@@ -817,8 +824,8 @@ def dense_case(shape, cin, g, slope, seed: int):
     untouched = (torch.equal(outs[0][..., :cin], buf[..., :cin])
                  and bool(outs[0][..., cin + g:].isnan().all()))
     ok = err <= DENSE_TOL * max(scale, 1.0) and same_bits and untouched
-    splits = D.split_count(n * h, w, cin, g, torch.cuda.get_device_properties(
-        0).multi_processor_count)
+    geo = dense_geometry(shape, cin, g)
+    slots = 2 * torch.cuda.get_device_properties(0).multi_processor_count
     x_nchw = buf[..., :cin].permute(0, 3, 1, 2).contiguous()
     w_oihw = wk.reshape(3, 3, cin, g).permute(3, 2, 0, 1).contiguous()
     flops = 2.0 * m * g * 9 * cin
@@ -827,7 +834,10 @@ def dense_case(shape, cin, g, slope, seed: int):
     kernel_ms = graph_ms(
         lambda: D.dense_conv3x3(outs[1], cin, wk, bias_a, b3, slope))
     return {"shape": list(shape), "m": m, "cin": cin, "g": g,
-            "slope": slope, "splits": splits, "ok": ok, "max_err": err,
+            "slope": slope, "splits": geo.splits, "row_w": geo.row_w,
+            "tile_n": geo.tile_n, "blocks": geo.blocks,
+            "last_wave_fill": (geo.blocks - 1) % slots / slots + 1 / slots,
+            "ok": ok, "max_err": err,
             "scale": scale, "bits_equal": same_bits, "untouched": untouched,
             "kernel_ms": kernel_ms,
             "plain_ms": graph_ms(lambda: D.dense_conv3x3_plain(
@@ -855,7 +865,43 @@ def cond_flow():
                             seed=0))
 
 
-def phase_dense(batch: int = 16, queue: int = 4, request: int = 4):
+def twolevel_flow():
+    """configs/config_twolevel.yaml's model at full width (seeded weights,
+    projections perturbed) and its config."""
+    from finalproject_losslessimagecompression_tpu_torch.cli.train import (
+        load_config,
+    )
+    from finalproject_losslessimagecompression_tpu_torch.models import (
+        TwoLevelCfg,
+        TwoLevelFlow,
+    )
+
+    cfg = TwoLevelCfg.from_ref(load_config(os.path.join(ROOT, TL_CONFIG))[
+        "train"]["model"])
+    return cfg, perturbed(TwoLevelFlow(cfg, device="cuda", seed=0))
+
+
+def twolevel_launch_shapes(model, x):
+    """`dense_launch_shapes` of the two-level model's rough and fine
+    sub-flows on a batch x of 215x178 images."""
+    rx, px = model.split_levels(x)
+    return dense_launch_shapes(model.rough, rx), dense_launch_shapes(
+        model.fine, px)
+
+
+def dense_geometry(shape, cin, g):
+    """`ops.dense_conv.geometry` of a launch shape on this card."""
+    from finalproject_losslessimagecompression_tpu_torch.ops import (
+        dense_conv as D,
+    )
+
+    n, h, w, _ = shape
+    return D.geometry(n * h, w, cin, g, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+
+
+def phase_dense(batch: int = 16, queue: int = 4, request: int = 4,
+                tl_batch: int = 4):
     from finalproject_losslessimagecompression_tpu_torch.ops import (
         dense_conv as D,
     )
@@ -876,26 +922,47 @@ def phase_dense(batch: int = 16, queue: int = 4, request: int = 4):
     x4 = xs[0][:request]
     req = dense_launch_shapes(flow, x4, torch.flip(x4, dims=(1,)))
     del flow
+    tl_cfg, tl = twolevel_flow()
+    rough, fine = twolevel_launch_shapes(
+        tl, torch.from_numpy(twolevel_images(tl_batch, 16)).cuda())
+    del tl
+    for sub, shapes in ((tl_cfg.rough, rough), (tl_cfg.fine, fine)):
+        assert len(shapes) == (sub.couple.nn.depth * sub.nflows
+                               + sub.prior_nn.depth) * sub.nsplit, len(shapes)
     cases = []
-    for name, shapes in (("imagenet64", bulk), ("resflow-cond", req)):
+    for name, shapes in (("imagenet64", bulk), ("resflow-cond", req),
+                         ("rough", rough), ("fine", fine)):
         for i, key in enumerate(dict.fromkeys(shapes)):
             row = dense_case(*key, seed=500 + i)
             row["config"] = name
             row["calls"] = shapes.count(key)
             cases.append(row)
             emit({"phase": "dense_case", **row})
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    reduces = sum(D.split_count(s[0] * s[1], s[2], cin, g, sms) > 1
-                  for s, cin, g, _ in bulk)
+    # the narrow geometry at the widths and heights no model launches: W 2
+    # and 1, an odd H (segments across image boundaries), g not a multiple
+    # of the tile
+    for i, key in enumerate((((64, 6, 2, 84), 37, 43, 0.0),
+                             ((16, 7, 1, 88), 20, 64, 0.01),
+                             ((9, 5, 4, 120), 50, 64, 0.0),
+                             ((33, 3, 4, 208), 100, 100, 0.01))):
+        row = dense_case(*key, seed=600 + i)
+        row["config"] = "narrow"
+        row["calls"] = 0
+        cases.append(row)
+        emit({"phase": "dense_case", **row})
+    narrow = [dense_geometry(*s[:3]).row_w > 0 for s in bulk + req + rough]
+    reduces = sum(dense_geometry(*s[:3]).splits > 1 for s in bulk)
     # the fused codec: eager, captured, then one replayed pass counted
     warm(codec, xs)
-    before = (D.dense_conv3x3.launches, D.splitk_reduce.launches)
+    before = (D.dense_conv3x3.launches, D.splitk_reduce.launches,
+              D.dense_conv3x3.narrow_launches)
     packed = codec.compress_many(xs)
     recs = codec.decompress_many(packed, fetch=True)
     exact = all(np.array_equal(r, x) for r, x in zip(recs, xs_np))
     launched = (D.dense_conv3x3.launches - before[0],
-                D.splitk_reduce.launches - before[1])
-    want = (len(bulk) * queue * 2, reduces * queue * 2)
+                D.splitk_reduce.launches - before[1],
+                D.dense_conv3x3.narrow_launches - before[2])
+    want = (len(bulk) * queue * 2, reduces * queue * 2, 0)
     # one captured train call (a warm-up, a capture, a replay): none
     with open(os.path.join(ROOT, "lic_bench", "configs",
                            "imagenet64.json")) as f:
@@ -910,7 +977,13 @@ def phase_dense(batch: int = 16, queue: int = 4, request: int = 4):
     train_launches = (D.dense_conv3x3.launches + D.splitk_reduce.launches
                       - before_train)
     ok = (all(r["ok"] for r in cases) and exact and launched == want
-          and train_launches == 0)
+          and train_launches == 0 and not any(narrow)
+          and all(dense_geometry(*s[:3]).row_w == 4 for s in fine))
+
+    def per_call(config, key, scale=1):
+        return sum(r[key] * r["calls"] for r in cases
+                   if r["config"] == config) * scale
+
     out = {"phase": "dense", "ok": ok, "build_s": build_s,
            "shapes": len(cases), "max_err_rel": max(
                r["max_err"] / max(r["scale"], 1.0) for r in cases),
@@ -924,7 +997,15 @@ def phase_dense(batch: int = 16, queue: int = 4, request: int = 4):
            * queue * 2,
            "request_kernel_ms": sum(r["kernel_ms"] * r["calls"] for r in
                                     cases if r["config"] == "resflow-cond")
-           * 2}
+           * 2,
+           # one batch of tl_batch images, one direction
+           "twolevel_ms_batch": {
+               sub: {key: per_call(sub, key) for key in
+                     ("kernel_ms", "bound_ms", "plain_ms", "library_ms")}
+               for sub in ("fine", "rough")},
+           "fine_under_library_and_plain": all(
+               r["kernel_ms"] < min(r["library_ms"], r["plain_ms"])
+               for r in cases if r["config"] == "fine")}
     emit(out)
     assert ok, out
     return out
@@ -1268,18 +1349,11 @@ def fused_residual(wrappers, batch: int = 16, queue: int = 4):
 def fused_twolevel(wrappers, batch: int = 4, queue: int = 2):
     """TwoLevelCodec(granularity="fused") against "level" on
     configs/config_twolevel.yaml's model at full width."""
-    from finalproject_losslessimagecompression_tpu_torch.cli.train import (
-        load_config,
-    )
     from finalproject_losslessimagecompression_tpu_torch.models import (
-        TwoLevelCfg,
         TwoLevelCodec,
-        TwoLevelFlow,
     )
 
-    cfg = TwoLevelCfg.from_ref(load_config(os.path.join(ROOT, TL_CONFIG))[
-        "train"]["model"])
-    model = perturbed(TwoLevelFlow(cfg, device="cuda", seed=0))
+    cfg, model = twolevel_flow()
     fused = TwoLevelCodec(model, num_streams=4096, granularity="fused")
     level = TwoLevelCodec(model, num_streams=4096, granularity="level")
     imgs = twolevel_images(batch * queue, 16)
@@ -1907,6 +1981,9 @@ def phase_residual(wrappers, batch: int = 16, queue: int = 4):
         ResidualCodec,
         build_vqvae_from_ref,
     )
+    from finalproject_losslessimagecompression_tpu_torch.ops.dense_conv import (  # noqa: E501
+        dense_conv3x3,
+    )
 
     config = os.path.join(ROOT, RES_CONFIG)
     train = load_config(config)["train"]
@@ -1921,12 +1998,15 @@ def phase_residual(wrappers, batch: int = 16, queue: int = 4):
 
     for w in wrappers.values():
         w.launches = 0
+    narrow0 = dense_conv3x3.narrow_launches
     t0 = time.time()
     packed = res.compress_many(xs)
     recs = res.decompress_many(packed, fetch=True)
     wall = time.time() - t0
     launches = {n: w.launches for n, w in wrappers.items()}
     assert all(v == cfg.nsplit for v in launches.values()), launches
+    # 64-wide images: no DenseLayer takes the narrow geometry
+    assert dense_conv3x3.narrow_launches == narrow0
     assert all(np.array_equal(r, x) for r, x in zip(recs, xs_np)), \
         "residual round trip is not bit-exact"
     numel = batch * queue * 64 * 64 * 3
@@ -2279,15 +2359,15 @@ def phase_twolevel(wrappers, batch: int = 4, queue: int = 2):
     """TwoLevelCodec over configs/config_twolevel.yaml's model at full
     width (seeded weights, projections perturbed): compress_many then
     decompress_many(fetch=True) on a queue of `queue` batches of `batch`
-    215x178 images, bit-exact, one launch of each kernel per sub-flow; then
-    a torch.profiler pass.  Returns the result and the model."""
-    from finalproject_losslessimagecompression_tpu_torch.cli.train import (
-        load_config,
-    )
+    215x178 images, bit-exact, one launch of each kernel per sub-flow, and
+    every DenseLayer of the fine sub-flow (4-wide rows) and none of the
+    rough one's on the DenseLayer kernel's narrow geometry; then a
+    torch.profiler pass.  Returns the result and the model."""
     from finalproject_losslessimagecompression_tpu_torch.models import (
-        TwoLevelCfg,
         TwoLevelCodec,
-        TwoLevelFlow,
+    )
+    from finalproject_losslessimagecompression_tpu_torch.ops import (
+        dense_conv as D,
     )
     from finalproject_losslessimagecompression_tpu_torch.models.idflow import (  # noqa: E501
         log_likelihood,
@@ -2296,9 +2376,7 @@ def phase_twolevel(wrappers, batch: int = 4, queue: int = 2):
         twolevel_bpd,
     )
 
-    cfg = TwoLevelCfg.from_ref(load_config(os.path.join(ROOT, TL_CONFIG))[
-        "train"]["model"])
-    model = perturbed(TwoLevelFlow(cfg, device="cuda", seed=0))
+    cfg, model = twolevel_flow()
     codec = TwoLevelCodec(model, num_streams=4096)
     imgs = twolevel_images(batch * queue, 16)
     xs = [torch.from_numpy(imgs[i * batch:(i + 1) * batch]).cuda()
@@ -2310,12 +2388,19 @@ def phase_twolevel(wrappers, batch: int = 4, queue: int = 2):
     torch.cuda.synchronize()
 
     reset_launches(wrappers)
+    narrow0 = D.dense_conv3x3.narrow_launches
     packed, t_enc = timed(lambda: codec.compress_many(xs))
     recs, t_dec = timed(lambda: codec.decompress_many(packed, fetch=True))
     launches = launch_counts(wrappers)
+    narrow = D.dense_conv3x3.narrow_launches - narrow0
     # one launch of each kernel per (sub-flow, level)
     nl = cfg.rough.nsplit + cfg.fine.nsplit
     assert all(v == nl for v in launches.values()), launches
+    # the fine sub-flow's DenseLayers, each batch, each direction
+    fine = cfg.fine
+    fine_calls = (fine.couple.nn.depth * fine.nflows
+                  + fine.prior_nn.depth) * fine.nsplit
+    assert narrow == fine_calls * queue * 2, (narrow, fine_calls)
     assert all(np.array_equal(r, imgs[i * batch:(i + 1) * batch])
                for i, r in enumerate(recs)), "two-level round trip differs"
     with torch.no_grad():
@@ -2343,7 +2428,8 @@ def phase_twolevel(wrappers, batch: int = 4, queue: int = 2):
            "containers_per_batch": nb,
            "analytic_bpd": twolevel_bpd(cfg, bpd1, bpd2),
            "analytic_bpd_rough": bpd1, "analytic_bpd_fine": bpd2,
-           "launches": launches,
+           "launches": launches, "dense_narrow_launches": narrow,
+           "dense_fine_calls_per_batch": fine_calls,
            "kernel_shapes": twolevel_shapes(codec, [batch])}
     emit(res)
     profile_pass(lambda: codec.decompress_many(codec.compress_many(xs),

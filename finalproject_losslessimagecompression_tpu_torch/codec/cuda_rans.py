@@ -130,14 +130,17 @@ def _stream() -> int:
 _captures = threading.local()
 
 
-def _launched(wrapper) -> None:
-    """Count one launch of `wrapper`'s kernel: into the innermost
-    `record_launches` tally while one is open, else on its counter."""
+def _launched(wrapper, counter: str = "launches") -> None:
+    """Count one launch of `wrapper`'s kernel on its attribute `counter`:
+    into the innermost `record_launches` tally while one is open (keyed by
+    the wrapper, or by (wrapper, counter) for a counter other than
+    `launches`), else on the attribute."""
+    key = wrapper if counter == "launches" else (wrapper, counter)
     stack = getattr(_captures, "stack", None)
     if stack:
-        stack[-1][wrapper] = stack[-1].get(wrapper, 0) + 1
+        stack[-1][key] = stack[-1].get(key, 0) + 1
     else:
-        wrapper.launches += 1
+        setattr(wrapper, counter, getattr(wrapper, counter) + 1)
 
 
 @contextlib.contextmanager
@@ -168,8 +171,10 @@ class CountedGraph:
 
     def replay(self) -> None:
         self.graph.replay()
-        for wrapper, n in self.launches.items():
-            wrapper.launches += n
+        for key, n in self.launches.items():
+            wrapper, counter = (key if isinstance(key, tuple)
+                                else (key, "launches"))
+            setattr(wrapper, counter, getattr(wrapper, counter) + n)
 
 
 def rans_cdf_prepass(v: torch.Tensor, m: torch.Tensor, s: torch.Tensor,

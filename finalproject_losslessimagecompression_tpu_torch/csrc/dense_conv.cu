@@ -16,28 +16,45 @@
 // slope 0, LeakyReLU with 0.01).
 //
 // What bounds it on this card.  A layer is an implicit GEMM of M = N*H*W
-// pixels by g = 42..48 output channels by K = 9 * cin (cin 9 to ~520):
+// pixels by g = 42..64 output channels by K = 9 * cin (cin 2 to ~520):
 // float32 FMA on the SIMT cores (TF32 is off for this codec, so the tensor
-// cores are out), 67 TFLOP/s.  Each input value feeds 9 x 48 products, so
+// cores are out), 67 TFLOP/s.  Each input value feeds 9 x g products, so
 // it is compute-bound once cin passes a few channels; what stands between
 // it and the FMA rate is shared memory's bandwidth (a thread's operands
-// come from shared memory) and that M * g is small (16384 x 48 outputs at
-// most) against 132 SMs.  What the design does about it:
-//   - a thread owns a row segment of 8 pixels by 12 output channels (96
-//     sums in registers).  For one input channel and one tap row it loads
-//     the segment's 10 pixels (with the left and right halo) once and
-//     multiplies them into all three horizontal taps: 288 FMAs for 10
-//     scalar and 9 16-byte shared-memory loads.  A warp holds 8 segments
-//     by the 4 channel groups; a block of 4 warps 32 segments (256 pixels
-//     of whole rows) by 48 channels.  Segments tile each image row (the
-//     last one of a row masked), so any width works.  Two blocks share an
-//     SM, so a thread may hold 255 registers and spills none (three blocks
-//     of 168 registers spilled and ran 16% slower on the bulk's layers).
+// come from shared memory), FMAs spent on masked pixels and channels, and
+// that M * g is small (16384 x 48 outputs on imagenet64, 39,744 x 64 on the
+// two-level codec's 4x4 tiles) against 132 SMs.  What the design does:
+//   - a thread owns a segment of 8 consecutive pixels by kBN / 4 output
+//     channels (kBN / 4 * 8 sums in registers).  For one input channel and
+//     one tap row it loads the segment's pixels once and multiplies them
+//     into all three horizontal taps.  A warp holds 8 segments by the 4
+//     channel groups; a block of 4 warps 32 segments (256 pixels) by kBN
+//     channels.  Two blocks share an SM, so a thread may hold 255
+//     registers and spills none (three blocks of 168 registers spilled and
+//     ran 16% slower on the bulk's layers).
+//   - Two geometries, chosen by the wrapper from the launch shape alone
+//     (template parameters of this one kernel):
+//       wide (kRowW = 0, W >= 8 or W not dividing 8; kBN = 48): a segment
+//       is 8 pixels of one image row; it loads its 10 pixels with the left
+//       and right halo (288 FMAs a thread for 10 scalar and 9 16-byte
+//       shared-memory loads).  Segments tile each image row, the last one
+//       of a row masked, so any width works.
+//       narrow (kRowW = W, W in {1, 2, 4}): a segment is 8 / W whole
+//       consecutive rows of the stacked N*H rows, so no pixel is masked
+//       (a 4-wide row in a wide segment leaves half of it masked).  Each
+//       pixel keeps its own image row for its tap-row bounds and the bias
+//       field, so a segment may cross an image boundary.  The horizontal
+//       halo always lies outside the image: it is not loaded, and the taps
+//       that would read it are skipped at compile time (10 of 12 at W = 4;
+//       fmaf(0, w, acc) is acc, so the arithmetic is the same).  kBN is 64
+//       where g > 48, so g = 64 is one tile with no masked channel (two
+//       48-channel tiles spent 96 channels of FMAs on 64); 16 channels by
+//       8 pixels is 128 sums a thread, under the 255-register budget.
 //   - K runs as stages of (8 input channels, one tap row): cp.async copies
-//     the segments' halo rows (zero-filled outside the image and past cin)
-//     and the three taps' weights into a ring of 3 shared-memory stages.
-//     A segment's halo row sits at a stride of 84 floats, which puts the
-//     8 segments of a warp in distinct banks.
+//     the segments' rows (zero-filled outside the image and past cin) and
+//     the three taps' weights into a ring of 3 shared-memory stages.  A
+//     segment's row sits at a stride of 84 floats (wide) or 68 (narrow),
+//     which puts the 8 segments of a warp in distinct banks.
 //   - K is split over `splits` blocks per tile (chosen by the wrapper from
 //     the launch shape alone), so that small M still fills the card; each
 //     split writes its partial tile to scratch, and
@@ -57,22 +74,34 @@
 namespace {
 
 constexpr int kThreads = 128;  // 4 warps
-constexpr int kSegPx = 8;      // pixels of a row segment
-constexpr int kHalo = kSegPx + 2;
+constexpr int kSegPx = 8;      // pixels of a segment
 constexpr int kSegs = 32;      // segments of a block tile
-constexpr int kBN = 48;        // output channels of a block tile
-constexpr int kTN = 12;        // output channels of a thread
 constexpr int kKC = 8;         // input channels of a stage
-constexpr int kSegStride = kHalo * kKC + 4;  // floats between segments
 constexpr int kStages = 3;     // cp.async ring depth
 constexpr int kTaps = 9;
-constexpr int kALoads = kSegs * kHalo * (kKC / 4) / kThreads;
-constexpr int kBLoads = 3 * kKC * kBN / kThreads;
+constexpr int kWideBN = 48;    // output channels of a wide block tile
 
-static_assert(kSegs * kHalo * (kKC / 4) % kThreads == 0, "A loads");
-static_assert(3 * kKC * kBN % kThreads == 0, "B loads");
-static_assert(kSegs == 4 * 8 && kBN == 4 * kTN,
-              "a warp: 8 segments x 4 channel groups");
+// The shape of a geometry: kRowW 0 is wide (a segment of one row, loaded
+// with its halo), else narrow (8 / kRowW whole rows of kRowW pixels).
+template <int kRowW, int kBN>
+struct Geo {
+  static constexpr bool kNarrow = kRowW > 0;
+  static constexpr int kRowDiv = kNarrow ? kRowW : 1;  // a nonzero kRowW
+  static constexpr int kPx = kNarrow ? kSegPx : kSegPx + 2;  // loaded
+  static constexpr int kTN = kBN / 4;  // output channels of a thread
+  static constexpr int kSegStride = kPx * kKC + 4;  // floats a segment
+  static constexpr int kALoads = kSegs * kPx * (kKC / 4) / kThreads;
+  static constexpr int kBLoads = 3 * kKC * kBN / kThreads;
+  // input channels of a stage unrolled together in the main loop: one in
+  // the narrow geometry, whose 128 sums a thread leave no registers to
+  // overlap two (1-2% faster on the 4x4 tiles than two)
+  static constexpr int kUnrollK = kNarrow ? 1 : 2;
+  static_assert(!kNarrow || kSegPx % kRowW == 0, "whole rows a segment");
+  static_assert(kSegs * kPx * (kKC / 4) % kThreads == 0, "A loads");
+  static_assert(3 * kKC * kBN % kThreads == 0, "B loads");
+  static_assert(kSegs == 4 * 8 && kTN % 4 == 0 && kBN <= kThreads,
+                "a warp: 8 segments x 4 channel groups");
+};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -122,28 +151,34 @@ __device__ __forceinline__ float bias_field(const float* a9, int y, int x,
   return t;
 }
 
+template <int kRowW, int kBN>
 struct Smem {
-  float a[kStages][kSegs * kSegStride];  // [segment][10 pixels][8 channels]
-  float b[kStages][3 * kKC * kBN];       // [tap column][channel][48 outputs]
-  float bias[kBN * kTaps];               // a[n, t] of the tile's channels
+  using G = Geo<kRowW, kBN>;
+  float a[kStages][kSegs * G::kSegStride];  // [segment][pixel][8 channels]
+  float b[kStages][3 * kKC * kBN];          // [tap column][channel][kBN]
+  float bias[kBN * kTaps];                  // a[n, t] of the tile's channels
   float b3[kBN];
 };
 
-// grid (ceil(rows * segments a row / 32), ceil(g / 48), splits), rows =
-// N * H.  splits == 1: the epilogue writes the layer's channels; else each
-// split writes its partial tile to part[split, m, n] (n over ceil(g / 48)
-// * 48) for the reduce kernel.
+// grid (ceil(segments / 32), ceil(g / kBN), splits); segments: rows * ceil(W
+// / 8) (wide, rows = N * H) or ceil(M / 8) (narrow).  splits == 1: the
+// epilogue writes the layer's channels; else each split writes its partial
+// tile to part[split, m, n] (n over ceil(g / kBN) * kBN) for the reduce
+// kernel.
+template <int kRowW, int kBN>
 __global__ void __launch_bounds__(kThreads, 2)
 dense_conv3x3_fprop_kernel(float* buf, const float* __restrict__ w,
                            const float* __restrict__ bias_a,
                            const float* __restrict__ b3,
                            float* __restrict__ part, int M, int H, int W,
                            int P, int cin, int g, float slope) {
-  __shared__ __align__(16) Smem sm;
+  using G = Geo<kRowW, kBN>;
+  constexpr int kPx = G::kPx, kTN = G::kTN, kSegStride = G::kSegStride;
+  __shared__ __align__(16) Smem<kRowW, kBN> sm;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int rows = M / W;
-  const int xb_row = (W + kSegPx - 1) / kSegPx;  // segments of a row
+  const int xb_row = (W + kSegPx - 1) / kSegPx;  // segments of a wide row
   const int seg0 = blockIdx.x * kSegs;
   const int n0 = blockIdx.y * kBN;
   const int splits = gridDim.z;
@@ -152,20 +187,30 @@ dense_conv3x3_fprop_kernel(float* buf, const float* __restrict__ w,
   const int s_end = (int)((int64_t)total * (blockIdx.z + 1) / splits);
   const int nst = s_end - s_begin;
 
-  // this thread's cp16 copies of a stage (segment, halo pixel, quad): the
+  // this thread's cp16 copies of a stage (segment, pixel, quad): the
   // pixel's index, and bit 3 u + dy + 1 of `lrows` set where the pixel
   // exists and its row y + dy is inside the image
-  int lpix[kALoads];
+  int lpix[G::kALoads];
   unsigned lrows = 0;
 #pragma unroll
-  for (int u = 0; u < kALoads; ++u) {
+  for (int u = 0; u < G::kALoads; ++u) {
     const int e = tid + kThreads * u;
-    const int s = e / (2 * kHalo), j = (e % (2 * kHalo)) >> 1;
-    const int gs = seg0 + s, r = gs / xb_row;
-    const int x = (gs % xb_row) * kSegPx + j - 1;
-    lpix[u] = r * W + x;
-    if (r < rows && (unsigned)x < (unsigned)W) {
-      const int y = r % H;
+    const int s = e / (2 * kPx), j = (e % (2 * kPx)) >> 1;
+    bool exists;
+    int y;
+    if (G::kNarrow) {
+      const int m = (seg0 + s) * kSegPx + j;
+      lpix[u] = m;
+      exists = m < M;
+      y = m / G::kRowDiv % H;
+    } else {
+      const int gs = seg0 + s, r = gs / xb_row;
+      const int x = (gs % xb_row) * kSegPx + j - 1;
+      lpix[u] = r * W + x;
+      exists = r < rows && (unsigned)x < (unsigned)W;
+      y = r % H;
+    }
+    if (exists) {
 #pragma unroll
       for (int dy = -1; dy <= 1; ++dy)
         if ((unsigned)(y + dy) < (unsigned)H) lrows |= 1u << (3 * u + dy + 1);
@@ -177,9 +222,9 @@ dense_conv3x3_fprop_kernel(float* buf, const float* __restrict__ w,
     const int dy = st - chunk * 3 - 1;
     const int c0 = chunk * kKC;
 #pragma unroll
-    for (int u = 0; u < kALoads; ++u) {
+    for (int u = 0; u < G::kALoads; ++u) {
       const int e = tid + kThreads * u;
-      const int s = e / (2 * kHalo), rem = e % (2 * kHalo);
+      const int s = e / (2 * kPx), rem = e % (2 * kPx);
       const int q = rem & 1;
       int valid = cin - (c0 + 4 * q);
       valid = valid < 0 ? 0 : (valid > 4 ? 4 : valid);
@@ -193,7 +238,7 @@ dense_conv3x3_fprop_kernel(float* buf, const float* __restrict__ w,
     }
     // weights w[(dy + 1) * 3 + dx, c0 + k, n0 + n] -> b[dx][k][n]
 #pragma unroll
-    for (int v = 0; v < kBLoads; ++v) {
+    for (int v = 0; v < G::kBLoads; ++v) {
       const int e = tid + kThreads * v;
       const int dx = e / (kKC * kBN), rem = e % (kKC * kBN);
       const int k = rem / kBN, n = rem % kBN;
@@ -217,7 +262,7 @@ dense_conv3x3_fprop_kernel(float* buf, const float* __restrict__ w,
     cp_commit();
   }
 
-  // this thread's outputs: segment seg, channels ns .. ns + 11
+  // this thread's outputs: segment seg, channels ns .. ns + kTN - 1
   const int seg = (tid >> 5) * 8 + (lane & 7);
   const int ns = (lane >> 3) * kTN;
   float acc[kSegPx][kTN];
@@ -234,39 +279,62 @@ dense_conv3x3_fprop_kernel(float* buf, const float* __restrict__ w,
     cp_commit();
     const float* as = sm.a[it % kStages] + seg * kSegStride;
     const float* bs = sm.b[it % kStages] + ns;
-#pragma unroll 2
+#pragma unroll(G::kUnrollK)
     for (int k = 0; k < kKC; ++k) {
-      float a[kHalo];
+      float a[kPx];
 #pragma unroll
-      for (int j = 0; j < kHalo; ++j) a[j] = as[j * kKC + k];
+      for (int j = 0; j < kPx; ++j) a[j] = as[j * kKC + k];
 #pragma unroll
       for (int dx = 0; dx < 3; ++dx) {
         const float4* br =
             reinterpret_cast<const float4*>(bs + (dx * kKC + k) * kBN);
-        const float4 q0 = br[0], q1 = br[1], q2 = br[2];
-        const float b[kTN] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y,
-                              q1.z, q1.w, q2.x, q2.y, q2.z, q2.w};
+        float b[kTN];
 #pragma unroll
-        for (int j = 0; j < kSegPx; ++j)
+        for (int q = 0; q < kTN / 4; ++q) {
+          const float4 v = br[q];
+          b[4 * q] = v.x;
+          b[4 * q + 1] = v.y;
+          b[4 * q + 2] = v.z;
+          b[4 * q + 3] = v.w;
+        }
 #pragma unroll
-          for (int n = 0; n < kTN; ++n)
-            acc[j][n] = fmaf(a[j + dx], b[n], acc[j][n]);
+        for (int j = 0; j < kSegPx; ++j) {
+          // narrow: pixel j reads x + dx - 1 of its own row, skipped where
+          // that lies outside the row (the zero padding)
+          if (G::kNarrow &&
+              (unsigned)(j % G::kRowDiv + dx - 1) >= (unsigned)kRowW)
+            continue;
+          const float av = a[G::kNarrow ? j + dx - 1 : j + dx];
+#pragma unroll
+          for (int n = 0; n < kTN; ++n) acc[j][n] = fmaf(av, b[n], acc[j][n]);
+        }
       }
     }
   }
   cp_wait<0>();
 
-  const int gs = seg0 + seg, r = gs / xb_row;
-  const int x0 = (gs % xb_row) * kSegPx;
-  if (r >= rows) return;
+  // the segment's first pixel, its pixels that exist, and for the wide
+  // geometry its row and first column
+  int m0, npx, r = 0, x0 = 0;
+  if (G::kNarrow) {
+    m0 = (seg0 + seg) * kSegPx;
+    if (m0 >= M) return;
+    npx = M - m0 < kSegPx ? M - m0 : kSegPx;
+  } else {
+    const int gs = seg0 + seg;
+    r = gs / xb_row;
+    x0 = (gs % xb_row) * kSegPx;
+    if (r >= rows) return;
+    m0 = r * W + x0;
+    npx = W - x0 < kSegPx ? W - x0 : kSegPx;
+  }
   if (splits > 1) {
     const int np = gridDim.y * kBN;
 #pragma unroll
     for (int j = 0; j < kSegPx; ++j) {
-      if (x0 + j >= W) break;
-      const int m = r * W + x0 + j;
+      if (j >= npx) break;
       float4* dst = reinterpret_cast<float4*>(
-          part + ((size_t)blockIdx.z * M + m) * np + n0 + ns);
+          part + ((size_t)blockIdx.z * M + m0 + j) * np + n0 + ns);
 #pragma unroll
       for (int q = 0; q < kTN / 4; ++q)
         dst[q] = make_float4(acc[j][4 * q], acc[j][4 * q + 1],
@@ -275,16 +343,17 @@ dense_conv3x3_fprop_kernel(float* buf, const float* __restrict__ w,
     return;
   }
   // the bias tables were written before the main loop's first barrier
-  const int y = r % H;
 #pragma unroll
   for (int j = 0; j < kSegPx; ++j) {
-    if (x0 + j >= W) break;
-    float* out = buf + ((size_t)r * W + x0 + j) * P + cin + n0 + ns;
+    if (j >= npx) break;
+    const int y = G::kNarrow ? (m0 + j) / G::kRowDiv % H : r % H;
+    const int x = G::kNarrow ? j % G::kRowDiv : x0 + j;
+    float* out = buf + ((size_t)m0 + j) * P + cin + n0 + ns;
 #pragma unroll
     for (int n = 0; n < kTN; ++n) {
       if (n0 + ns + n >= g) break;
       const float t = sm.b3[ns + n] +
-                      bias_field(&sm.bias[(ns + n) * kTaps], y, x0 + j, H, W);
+                      bias_field(&sm.bias[(ns + n) * kTaps], y, x, H, W);
       out[n] = activate(acc[j][n] + t, slope);
     }
   }
@@ -309,33 +378,80 @@ __global__ void dense_conv3x3_splitk_reduce_kernel(
   buf[(size_t)m * P + cin + n] = activate(v + t, slope);
 }
 
+template <int kRowW, int kBN>
+void launch_fprop(float* buf, const float* w, const float* bias_a,
+                  const float* b3, float* part, int M, int H, int W, int P,
+                  int cin, int g, int splits, float slope,
+                  cudaStream_t stream) {
+  const int64_t segs = kRowW > 0 ? ((int64_t)M + kSegPx - 1) / kSegPx
+                                 : (int64_t)(M / W) *
+                                       ((W + kSegPx - 1) / kSegPx);
+  const dim3 grid((unsigned)((segs + kSegs - 1) / kSegs),
+                  (g + kBN - 1) / kBN, splits);
+  dense_conv3x3_fprop_kernel<kRowW, kBN><<<grid, kThreads, 0, stream>>>(
+      buf, w, bias_a, b3, part, M, H, W, P, cin, g, slope);
+}
+
+template <int kRowW>
+bool launch_narrow(int tile_n, float* buf, const float* w,
+                   const float* bias_a, const float* b3, float* part, int M,
+                   int H, int W, int P, int cin, int g, int splits,
+                   float slope, cudaStream_t stream) {
+  if (tile_n == kWideBN)
+    launch_fprop<kRowW, kWideBN>(buf, w, bias_a, b3, part, M, H, W, P, cin,
+                                 g, splits, slope, stream);
+  else if (tile_n == 64)
+    launch_fprop<kRowW, 64>(buf, w, bias_a, b3, part, M, H, W, P, cin, g,
+                            splits, slope, stream);
+  else
+    return false;
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
 
 // buf: [M = N*H*W, P] float32 (P % 4 == 0, 16-byte aligned); w [9, cin, g];
-// bias_a [g, 9]; b3 [g]; part: splits * M * ceil(g / 48) * 48 floats when
-// splits > 1 (else unused).
+// bias_a [g, 9]; b3 [g]; part: splits * M * ceil(g / tile_n) * tile_n
+// floats when splits > 1 (else unused).  row_w 0 with tile_n 48: the wide
+// geometry; row_w == W in {1, 2, 4} with tile_n 48 or 64: the narrow one.
+// Any other geometry returns cudaErrorInvalidValue and launches nothing.
 int dense_conv3x3_launch(float* buf, const float* w, const float* bias_a,
                          const float* b3, float* part, int M, int H, int W,
-                         int P, int cin, int g, int splits, float slope,
-                         void* stream) {
-  const int64_t segs = (int64_t)(M / W) * ((W + kSegPx - 1) / kSegPx);
-  const dim3 grid((unsigned)((segs + kSegs - 1) / kSegs),
-                  (g + kBN - 1) / kBN, splits);
-  if (M > 0 && g > 0)
-    dense_conv3x3_fprop_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        buf, w, bias_a, b3, part, M, H, W, P, cin, g, slope);
+                         int P, int cin, int g, int row_w, int tile_n,
+                         int splits, float slope, void* stream) {
+  if (M <= 0 || g <= 0) return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  bool ok = false;
+  if (row_w == 0) {
+    ok = tile_n == kWideBN;
+    if (ok)
+      launch_fprop<0, kWideBN>(buf, w, bias_a, b3, part, M, H, W, P, cin, g,
+                               splits, slope, s);
+  } else if (row_w == W) {
+    if (W == 4)
+      ok = launch_narrow<4>(tile_n, buf, w, bias_a, b3, part, M, H, W, P,
+                            cin, g, splits, slope, s);
+    else if (W == 2)
+      ok = launch_narrow<2>(tile_n, buf, w, bias_a, b3, part, M, H, W, P,
+                            cin, g, splits, slope, s);
+    else if (W == 1)
+      ok = launch_narrow<1>(tile_n, buf, w, bias_a, b3, part, M, H, W, P,
+                            cin, g, splits, slope, s);
+  }
+  if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
 int dense_conv3x3_reduce_launch(float* buf, const float* part,
                                 const float* bias_a, const float* b3, int M,
                                 int H, int W, int P, int cin, int g,
-                                int splits, float slope, void* stream) {
+                                int tile_n, int splits, float slope,
+                                void* stream) {
   const int threads = 256;
   const int64_t n = (int64_t)M * g;
-  const int np = (g + kBN - 1) / kBN * kBN;
+  const int np = (g + tile_n - 1) / tile_n * tile_n;
   if (n > 0)
     dense_conv3x3_splitk_reduce_kernel<<<(unsigned)((n + threads - 1) /
                                                     threads),

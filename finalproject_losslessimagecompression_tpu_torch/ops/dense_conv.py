@@ -13,15 +13,28 @@ act(v) = max(v, 0) + slope * min(v, 0) (ReLU: slope 0; LeakyReLU: 0.01).
 
 It replaces no Pallas kernel: the JAX package leaves this convolution to
 XLA, as this package's training path leaves it to cuDNN
-(`DenseBlock.concatenate`).  What
-bounds it on an H100: float32 FMA on the SIMT cores (67 TFLOP/s; TF32 is
-off for the codec), with few outputs per layer (M = N*H*W pixels by 42-48
-channels) to spread over 132 SMs.  A thread keeps a row segment of 8
-pixels by 12 channels in registers and multiplies each halo row it loads
-into all three horizontal taps; stages of (8 channels, one tap row) of the
-K dimension go through a cp.async ring in shared memory; K is split over
-several blocks per tile where M is small: `split_count`, a function of the
-launch shape alone.  Each split writes a partial tile, and a second kernel,
+(`DenseBlock.concatenate`).  What bounds it on an H100: float32 FMA on the
+SIMT cores (67 TFLOP/s; TF32 is off for the codec), FMAs spent on masked
+pixels and channels, and few outputs per layer (M = N*H*W pixels by 42-64
+channels) to spread over 132 SMs.  A thread keeps a segment of 8 pixels by
+a quarter of the block's output channels in registers and multiplies each
+row it loads into all three horizontal taps; stages of (8 channels, one
+tap row) of the K dimension go through a cp.async ring in shared memory.
+`geometry`, a function of the launch shape alone, picks one of two shapes
+of the one kernel:
+
+- wide (W >= 8, or W not dividing 8): a segment is 8 pixels of one image
+  row, loaded with its halo (the last segment of a row masked), the block
+  tile 32 segments by 48 channels; K is split over several blocks per tile
+  where M is small, up to one wave of BLOCKS_PER_SM blocks an SM.
+- narrow (W in 1, 2, 4): a segment is 8 / W whole rows of the stacked
+  N*H rows, so no pixel is masked, and the taps that would read the zero
+  padding beside a row are skipped (10 of 12 at W = 4).  The block tile is
+  64 channels where g > 48, so the two-level codec's g = 64 is one tile with
+  no masked channel.  K is split so that the blocks fill the card's waves
+  best (`narrow_splits`).
+
+Each split writes a partial tile, and a second kernel,
 `dense_conv3x3_splitk_reduce_kernel`, sums them in split order and applies
 the epilogue.  No atomics, so a shape gives the same bits on every launch:
 what keeps the codec's compress and decompress bit-exact.
@@ -29,9 +42,11 @@ what keeps the codec's compress and decompress bit-exact.
 Dispatch is by device: a CUDA buffer launches the kernel (or raises), a CPU
 buffer runs `dense_conv3x3_plain`, which computes the same function with
 `F.conv2d` writing into the slice.  Launch counts: `dense_conv3x3.launches`
-(one a layer) and `splitk_reduce.launches` (one a layer whose K is split),
-tallied into a CUDA graph's capture inside `cuda_rans.record_launches` and
-added on every replay, as the rANS wrappers' are.
+(one a layer), `dense_conv3x3.narrow_launches` (one a layer that takes the
+narrow geometry) and `splitk_reduce.launches` (one a layer whose K is
+split), tallied into a CUDA graph's capture inside
+`cuda_rans.record_launches` and added on every replay, as the rANS
+wrappers' are.
 
 The library is built with nvcc at first use into the package's `build/`
 directory (`native.build_native`) and bound with ctypes.  A failed build or
@@ -44,6 +59,7 @@ import ctypes
 import functools
 import os
 import threading
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -57,12 +73,29 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 ]
-# the kernel's row segment (kSegPx), segments and channels of a block tile
-# (kSegs, kBN) and input channels of a stage (kKC)
-SEG_PX, TILE_SEGS, TILE_N, STAGE_CH = 8, 32, 48, 8
+# the kernel's segment (kSegPx), segments of a block tile (kSegs), output
+# channels of a wide block tile (kWideBN) and of a narrow one where g > 48,
+# and input channels of a stage (kKC)
+SEG_PX, TILE_SEGS, TILE_N, NARROW_TILE_N, STAGE_CH = 8, 32, 48, 64, 8
 TAPS = 9
 # blocks the kernel keeps resident on an SM (its __launch_bounds__)
 BLOCKS_PER_SM = 2
+# a narrow layer's splits: at least NARROW_SPLIT_CH input channels each,
+# and at most NARROW_WAVES waves of blocks in all, since each split's
+# partial tile costs a write and a read of M x tile_n floats (on the
+# two-level codec's 4x4 tiles, 3 splits of cin 73 beat 1 and 5, and 5
+# splits of cin 201-460, 3 waves, beat 4 and 6-12)
+NARROW_SPLIT_CH, NARROW_WAVES = 16, 3
+
+
+class Geometry(NamedTuple):
+    """A launch's shape of the kernel: `row_w` 0 (wide) or W (narrow), the
+    block's output channels, the splits of K, and the blocks launched."""
+    row_w: int
+    tile_n: int
+    splits: int
+    blocks: int
+
 
 _lock = threading.Lock()
 _lib = None
@@ -80,22 +113,45 @@ def _load():
             lib = ctypes.CDLL(build())
             p, i, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.dense_conv3x3_launch.restype = i
-            lib.dense_conv3x3_launch.argtypes = [p] * 5 + [i] * 7 + [f32, p]
+            lib.dense_conv3x3_launch.argtypes = [p] * 5 + [i] * 9 + [f32, p]
             lib.dense_conv3x3_reduce_launch.restype = i
             lib.dense_conv3x3_reduce_launch.argtypes = (
-                [p] * 4 + [i] * 7 + [f32, p])
+                [p] * 4 + [i] * 8 + [f32, p])
             _lib = lib
     return _lib
 
 
-def split_count(rows: int, width: int, cin: int, g: int, sms: int) -> int:
-    """Blocks that share one output tile's K (9 taps x cin channels) in a
-    layer over `rows` = N * H image rows of `width` pixels: enough for one
-    wave of BLOCKS_PER_SM blocks on each of `sms` SMs, and at most one per
-    8 input channels (the three stages of their tap rows)."""
-    segments = rows * -(-width // SEG_PX)
-    tiles = -(-segments // TILE_SEGS) * -(-g // TILE_N)
-    return max(1, min(BLOCKS_PER_SM * sms // tiles, -(-cin // STAGE_CH)))
+def geometry(rows: int, width: int, cin: int, g: int,
+             sms: int) -> Geometry:
+    """The kernel's geometry for a layer over `rows` = N * H image rows of
+    `width` pixels, cin -> g channels, on a card of `sms` SMs (module
+    docstring): narrow where the width divides a segment."""
+    narrow = width < SEG_PX and SEG_PX % width == 0
+    if narrow:
+        segments = -(-rows * width // SEG_PX)
+        tile_n = NARROW_TILE_N if g > TILE_N else TILE_N
+    else:
+        segments = rows * -(-width // SEG_PX)
+        tile_n = TILE_N
+    tiles = -(-segments // TILE_SEGS) * -(-g // tile_n)
+    slots = BLOCKS_PER_SM * sms
+    if narrow:
+        splits = narrow_splits(tiles, cin, slots)
+    else:
+        # one wave, at most one split per 8 input channels
+        splits = max(1, min(slots // tiles, -(-cin // STAGE_CH)))
+    return Geometry(width if narrow else 0, tile_n, splits, tiles * splits)
+
+
+def narrow_splits(tiles: int, cin: int, slots: int) -> int:
+    """The splits of K for `tiles` narrow block tiles on `slots` resident
+    blocks: the fewest that give the least time in waves, ceil(tiles *
+    splits / slots) / splits, among those with at least NARROW_SPLIT_CH
+    input channels a split and at most NARROW_WAVES waves."""
+    most = max(1, min(cin // NARROW_SPLIT_CH,
+                      NARROW_WAVES * slots // tiles))
+    return min(range(1, most + 1),
+               key=lambda s: (-(-tiles * s // slots) / s, s))
 
 
 @functools.lru_cache(maxsize=None)
@@ -141,17 +197,21 @@ def dense_conv3x3(buf: torch.Tensor, cin: int, w: torch.Tensor,
     if p % 4 or buf.data_ptr() % 16:
         raise ValueError("buf: the pitch must be a multiple of 4 floats and "
                          "the data 16-byte aligned")
-    splits = split_count(m // wd, wd, cin, g, _sms(dev.index))
+    geo = geometry(m // wd, wd, cin, g, _sms(dev.index))
     part = buf.new_empty(
-        (splits, m, -(-g // TILE_N) * TILE_N) if splits > 1 else (0,))
+        (geo.splits, m, -(-g // geo.tile_n) * geo.tile_n)
+        if geo.splits > 1 else (0,))
     err = lib.dense_conv3x3_launch(
         buf.data_ptr(), w.data_ptr(), bias_a.data_ptr(), b3.data_ptr(),
-        part.data_ptr(), m, h, wd, p, cin, g, splits, slope, _stream())
+        part.data_ptr(), m, h, wd, p, cin, g, geo.row_w, geo.tile_n,
+        geo.splits, slope, _stream())
     _raise_if(err, "dense_conv3x3_fprop_kernel")
     _launched(dense_conv3x3)
-    if splits > 1:
-        splitk_reduce(lib, buf, part, bias_a, b3, (m, h, wd, p, cin, g),
-                      splits, slope)
+    if geo.row_w:
+        _launched(dense_conv3x3, "narrow_launches")
+    if geo.splits > 1:
+        splitk_reduce(lib, buf, part, bias_a, b3,
+                      (m, h, wd, p, cin, g, geo.tile_n), geo.splits, slope)
 
 
 def splitk_reduce(lib, buf, part, bias_a, b3, shape, splits, slope) -> None:
@@ -166,6 +226,7 @@ def splitk_reduce(lib, buf, part, bias_a, b3, shape, splits, slope) -> None:
 # launch counts: each wrapper adds one where it launches its kernel (or to
 # the tally of a capture in progress), and nowhere else
 dense_conv3x3.launches = 0
+dense_conv3x3.narrow_launches = 0
 splitk_reduce.launches = 0
 
 

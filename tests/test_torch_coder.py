@@ -150,6 +150,7 @@ def test_port_imports_no_jax(tmp_path):
         f"want = {[f'{PORT}.{m}' for m in MUST_WALK]!r}\n"
         "assert set(want) <= set(mods), sorted(set(want) - set(mods))\n"
         "import chip_smoke, chip_decode_variants, chip_profile_read\n"
+        "import chip_dense_compare\n"
     )
     blocked = ("yaml", "PIL", "msgpack", "optax", "tensorboard",
                "tensorflow")

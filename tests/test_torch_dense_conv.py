@@ -193,8 +193,176 @@ def test_cuda_call_without_library_raises(monkeypatch):
 def test_split_count(rows, width, cin, g, want):
     """The split over K is a function of the launch shape (and the card's
     132 SMs) alone: one wave of two blocks an SM, at most one split per 8
-    input channels, at least one."""
-    assert dense_conv.split_count(rows, width, cin, g, 132) == want
+    input channels, at least one (the wide geometry's rule; the last case,
+    one pixel wide, takes the narrow one, where 3 input channels make one
+    split as well)."""
+    assert dense_conv.geometry(rows, width, cin, g, 132).splits == want
+
+
+# (rows = N * H, width, cin, g) -> (row_w, tile_n, splits, blocks) on 132
+# SMs: 264 resident blocks of two an SM
+@pytest.mark.parametrize("rows,width,cin,g,want", [
+    # imagenet64 at batch 16 and resflow-cond at 4: the wide geometry, the
+    # splits of test_split_count
+    (512, 32, 478, 43, (0, 48, 4, 256)),
+    (256, 16, 478, 43, (0, 48, 16, 256)),
+    (128, 8, 478, 43, (0, 48, 60, 240)),
+    (32, 8, 400, 48, (0, 48, 50, 50)),
+    # the two-level rough sub-flow, 4 x 27 x 23: wide, two 48-channel tiles
+    (108, 23, 2, 64, (0, 48, 1, 22)),
+    (108, 23, 450, 64, (0, 48, 12, 264)),
+    # widths below 8 that do not divide it stay wide
+    (10, 3, 16, 8, (0, 48, 2, 2)),
+    (10, 6, 16, 8, (0, 48, 2, 2)),
+    # the fine sub-flow, 2484 x 4 x 4: narrow, one 64-channel tile
+    (9936, 4, 9, 64, (4, 64, 1, 156)),
+    (9936, 4, 73, 64, (4, 64, 3, 468)),
+    (9936, 4, 457, 64, (4, 64, 5, 780)),
+    # W 2 with g <= 48 (the 48-channel tile), W 1, an odd H (segments of
+    # two 4-wide rows across images of 5 rows), g over one 64-channel tile
+    (384, 2, 37, 43, (2, 48, 2, 6)),
+    (112, 1, 20, 64, (1, 64, 1, 1)),
+    (45, 4, 50, 64, (4, 64, 3, 3)),
+    (99, 4, 100, 100, (4, 64, 6, 24)),
+])
+def test_geometry(rows, width, cin, g, want):
+    """The kernel's geometry is a function of the launch shape and the
+    card's SMs alone: narrow where the width divides a segment of 8 (whole
+    rows a segment, a 64-channel tile where g > 48), else the wide
+    geometry with its one-wave split rule."""
+    geo = dense_conv.geometry(rows, width, cin, g, 132)
+    assert tuple(geo) == want
+    assert geo == dense_conv.geometry(rows, width, cin, g, 132)
+
+
+@pytest.mark.parametrize("cin", [c0 + 64 * k for c0 in (9, 12)
+                                 for k in range(8)])
+def test_fine_tiles_fill_the_card(cin):
+    """Every launch of the two-level fine sub-flow (2484 tiles of 4 x 4 at
+    batch 4, the couplings' cin 9 + 64 k and the prior's 12 + 64 k, g 64)
+    takes the narrow geometry with one 64-channel tile, and from a block's
+    second layer on at least one whole wave of two blocks on each of 132
+    SMs, at most three.  A block's first layer (cin 9, 12) keeps one split:
+    a split holds at least 16 channels."""
+    geo = dense_conv.geometry(2484 * 4, 4, cin, 64, 132)
+    assert (geo.row_w, geo.tile_n) == (4, 64)
+    assert geo.blocks == 156 * geo.splits
+    if cin > 64:
+        assert 264 <= geo.blocks <= 3 * 264
+    else:
+        assert geo.splits == 1
+
+
+class _FakeLib:
+    """Stands in for the kernels' library: records each launch's integer
+    arguments and returns `err`."""
+
+    def __init__(self, err=0):
+        self.err = err
+        self.fprop, self.reduce = [], []
+
+    def dense_conv3x3_launch(self, *args):
+        # M, H, W, P, cin, g, row_w, tile_n, splits
+        self.fprop.append(args[5:14])
+        return self.err
+
+    def dense_conv3x3_reduce_launch(self, *args):
+        # M, H, W, P, cin, g, tile_n, splits
+        self.reduce.append(args[4:12])
+        return self.err
+
+
+def _on_card(monkeypatch, lib):
+    """Route the wrapper's CUDA path to `lib` on CPU tensors."""
+    monkeypatch.setattr(dense_conv, "_load", lambda: lib)
+    monkeypatch.setattr(dense_conv, "_sms", lambda index: 132)
+    monkeypatch.setattr(dense_conv, "_stream", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
+
+
+def _layer(shape, cin, g, card=True, seed=0):
+    """A buffer of `shape` and a layer's operands (the buffer on the card
+    where `card`)."""
+    gen = torch.Generator().manual_seed(seed)
+    buf = torch.randn(shape, generator=gen)
+    return (buf.as_subclass(_OnCard) if card else buf, cin,
+            torch.randn((9, cin, g), generator=gen),
+            torch.randn((g, 9), generator=gen), torch.randn((g,),
+                                                            generator=gen))
+
+
+def _counts():
+    return (dense_conv.dense_conv3x3.launches,
+            dense_conv.dense_conv3x3.narrow_launches,
+            dense_conv.splitk_reduce.launches)
+
+
+def test_wrapper_launches_the_geometry(monkeypatch):
+    """A call hands the kernel `geometry`'s row width, tile and splits for
+    its launch shape, whatever the buffer holds; a narrow launch counts on
+    `dense_conv3x3.narrow_launches` besides `launches`, a split one on
+    `splitk_reduce.launches`.  Inside `record_launches` the launches go to
+    the capture's tally instead, and each replay of the counted graph adds
+    them."""
+    from finalproject_losslessimagecompression_tpu_torch.codec import (
+        cuda_rans,
+    )
+
+    lib = _FakeLib()
+    _on_card(monkeypatch, lib)
+    narrow = (6, 4, 4, 80), 70, 8    # 1 tile, 70 channels: 4 splits
+    wide = (1, 8, 8, 16), 4, 8
+    c0 = _counts()
+    for shape, cin, g in (narrow, narrow, wide):
+        dense_conv.dense_conv3x3(*_layer(shape, cin, g, seed=len(lib.fprop)),
+                                 0.0)
+        n, h, w, p = shape
+        geo = dense_conv.geometry(n * h, w, cin, g, 132)
+        assert lib.fprop[-1] == (n * h * w, h, w, p, cin, g, geo.row_w,
+                                 geo.tile_n, geo.splits)
+    assert lib.fprop[0] == lib.fprop[1]
+    assert lib.fprop[0][6:] == (4, 48, 4) and lib.fprop[2][6:] == (0, 48, 1)
+    assert lib.reduce == [(96, 4, 4, 80, 70, 8, 48, 4)] * 2
+    assert tuple(a - b for a, b in zip(_counts(), c0)) == (3, 2, 2)
+
+    c1 = _counts()
+    with cuda_rans.record_launches() as tally:
+        dense_conv.dense_conv3x3(*_layer(*narrow), 0.0)
+    assert tally == {dense_conv.dense_conv3x3: 1,
+                     (dense_conv.dense_conv3x3, "narrow_launches"): 1,
+                     dense_conv.splitk_reduce: 1}
+    assert _counts() == c1
+    graph = cuda_rans.CountedGraph(type("Stub", (), {
+        "replay": lambda self: None})(), tally)
+    graph.replay()
+    graph.replay()
+    assert tuple(a - b for a, b in zip(_counts(), c1)) == (2, 2, 2)
+
+
+def _absent():
+    raise RuntimeError("nvcc not found: the DenseLayer kernel cannot be "
+                       "built")
+
+
+@pytest.mark.parametrize("case", ["cpu", "no_library", "launch_refused"])
+def test_narrow_counter_counts_no_cpu_or_failed_call(monkeypatch, case):
+    """A narrow-shaped call on a CPU buffer (the plain version), one whose
+    library cannot be built and one whose launch the library refuses count
+    nothing on `narrow_launches`, `launches` or the reduce's counter."""
+    shape, cin, g = (6, 4, 4, 80), 70, 8
+    if case == "no_library":
+        monkeypatch.setattr(dense_conv, "_lib", None)
+        monkeypatch.setattr(dense_conv, "build", _absent)
+    else:
+        _on_card(monkeypatch, _FakeLib(err=1))
+    c0 = _counts()
+    if case == "cpu":
+        dense_conv.dense_conv3x3(*_layer(shape, cin, g, card=False), 0.0)
+    else:
+        with pytest.raises(RuntimeError, match="nvcc not found|launch "
+                           "failed"):
+            dense_conv.dense_conv3x3(*_layer(shape, cin, g), 0.0)
+    assert _counts() == c0
 
 
 def test_codec_round_trip_through_buffer_path(monkeypatch):
