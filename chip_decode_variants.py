@@ -76,6 +76,10 @@ SHAPES = [(384, 256, 1, 5), (768, 64, 1, 5), (384, 256, 4, 5),
 
 def build_all(cuda_rans, build_dir):
     """Patch and build every variant in parallel; returns name -> CDLL."""
+    from finalproject_losslessimagecompression_tpu_torch.codec.native import (
+        find_nvcc,
+    )
+
     src = open(cuda_rans._SRC).read()
     procs = {}
     for name, patches in VARIANTS.items():
@@ -88,7 +92,7 @@ def build_all(cuda_rans, build_dir):
         with open(path, "w") as f:
             f.write(text)
         procs[name] = subprocess.Popen(
-            [cuda_rans._nvcc(), *cuda_rans.NVCC_FLAGS, "-diag-suppress",
+            [find_nvcc(), *cuda_rans.NVCC_FLAGS, "-diag-suppress",
              "177", "-o", path[:-3] + ".so", path])
     libs = {}
     for name, proc in procs.items():

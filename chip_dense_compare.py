@@ -36,14 +36,12 @@ import sys
 import torch
 
 import chip_smoke as C
-from finalproject_losslessimagecompression_tpu_torch.codec.cuda_rans import (
-    _nvcc,
-    _stream,
-)
 from finalproject_losslessimagecompression_tpu_torch.codec.native import (
     build_native,
+    find_nvcc,
+    stream,
 )
-from finalproject_losslessimagecompression_tpu_torch.models.exact import (
+from finalproject_losslessimagecompression_tpu_torch.utils.graphs import (
     set_deterministic_cuda,
 )
 from finalproject_losslessimagecompression_tpu_torch.ops import dense_conv as D
@@ -70,16 +68,16 @@ def launch(lib, buf, cin, wk, bias_a, b3, slope, row_w, tile_n, splits):
     ptrs = (buf.data_ptr(), wk.data_ptr(), bias_a.data_ptr(), b3.data_ptr())
     assert lib.dense_conv3x3_launch(
         *ptrs, part.data_ptr(), m, h, w, p, cin, g, row_w, tile_n, splits,
-        slope, _stream()) == 0
+        slope, stream()) == 0
     if splits > 1:
         assert lib.dense_conv3x3_reduce_launch(
             buf.data_ptr(), part.data_ptr(), *ptrs[2:], m, h, w, p, cin, g,
-            tile_n, splits, slope, _stream()) == 0
+            tile_n, splits, slope, stream()) == 0
 
 
 def other_library(src):
     """OTHER.cu built and bound with the interface that takes no geometry."""
-    lib = ctypes.CDLL(build_native(src, _nvcc(), D.NVCC_FLAGS,
+    lib = ctypes.CDLL(build_native(src, find_nvcc(), D.NVCC_FLAGS,
                                    "dense_conv_other"))
     p, i, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.dense_conv3x3_launch.restype = i
@@ -97,11 +95,11 @@ def launch_other(lib, buf, cin, wk, bias_a, b3, slope, splits):
     ptrs = (buf.data_ptr(), wk.data_ptr(), bias_a.data_ptr(), b3.data_ptr())
     assert lib.dense_conv3x3_launch(
         *ptrs, part.data_ptr(), m, h, w, p, cin, g, splits, slope,
-        _stream()) == 0
+        stream()) == 0
     if splits > 1:
         assert lib.dense_conv3x3_reduce_launch(
             buf.data_ptr(), part.data_ptr(), *ptrs[2:], m, h, w, p, cin, g,
-            splits, slope, _stream()) == 0
+            splits, slope, stream()) == 0
 
 
 def splits_rows(lib, fine, max_splits=12):

@@ -41,9 +41,9 @@ Phases, each printing one JSON line:
             "fused") and "level": containers byte-identical, fused encode
             -> level decode and level encode -> fused decode bit-exact,
             one launch of each coding kernel per level in the eager first
-            call, the capturing second call (warm-up and capture count
-            none) and a replayed pass, wall and images/s of each mode,
-            the fused mode's idle share (profile pass `fused_profile`,
+            call, the capturing second call (the capture counts none;
+            its replay does) and a replayed pass, wall and images/s of
+            each mode, the fused mode's idle share (profile pass `fused_profile`,
             recording the launches on the device), capture seconds
             and the graph pool's bytes, and two
             decompress_many(fetch=False) results held across each other's
@@ -773,7 +773,7 @@ def dense_launch_shapes(model, x, cond=None):
 def graph_ms(fn, reps: int = 10) -> float:
     """Device ms of one fn() call: `reps` calls captured back to back in
     one CUDA graph, replayed and timed with CUDA events (no host gaps)."""
-    from finalproject_losslessimagecompression_tpu_torch.codec.cuda_rans import (  # noqa: E501
+    from finalproject_losslessimagecompression_tpu_torch.utils.graphs import (
         record_launches,
     )
 
@@ -1059,8 +1059,9 @@ def timed(fn):
 
 
 def phase_e2e(batch: int = 16, queue: int = 4):
-    from finalproject_losslessimagecompression_tpu_torch.codec.container import (
-        pack_streams_many,
+    from finalproject_losslessimagecompression_tpu_torch.models.exact import (
+        finish,
+        pack_queue,
     )
     from finalproject_losslessimagecompression_tpu_torch.models.idflow import (
         log_likelihood,
@@ -1105,15 +1106,10 @@ def phase_e2e(batch: int = 16, queue: int = 4):
 
     # phase split of one more queue pass, each fenced with synchronize and
     # timed with CUDA events
-    per_batch, t_enc = timed(lambda: codec._compress_deferred_many(xs))
-    flat = [e for encs, _ in per_batch for e in encs]
-    blobs, t_pack = timed(lambda: pack_streams_many(flat))
-    nl = cfg.nsplit
-    packed2 = [(blobs[i * nl:(i + 1) * nl], info)
-               for i, (_, info) in enumerate(per_batch)]
-    (_, oks), t_dec = timed(lambda: codec._decompress_deferred_many(packed2))
-    _, t_verify = timed(lambda: codec._check_got(
-        [bool(torch.stack(oks).all())]))
+    per_batch, t_enc = timed(lambda: codec.encode_queue(xs))
+    packed2, t_pack = timed(lambda: pack_queue(per_batch))
+    (xs2, oks), t_dec = timed(lambda: codec.decode_queue(packed2))
+    _, t_verify = timed(lambda: finish(xs2, oks))
     res = {"phase": "e2e", "batch": batch, "queue": queue,
            "bit_exact": exact, "real_bpd": real_bpd,
            "analytic_bpd": analytic_bpd,
@@ -1126,7 +1122,7 @@ def phase_e2e(batch: int = 16, queue: int = 4):
                         "verify": t_verify},
            "launches": launches,
            "streams_per_level": [codec._level_S(lv, batch)
-                                 for lv in range(nl)],
+                                 for lv in range(cfg.nsplit)],
            "kernel_shapes": coded_shapes(codec, [batch])}
     emit(res)
     # the replayed pass's launches, as the profiler records them on the
@@ -1201,7 +1197,7 @@ def graph_stats(codecs):
     """Capture seconds, graphs and graph pool bytes of FlowCodecs."""
     return {"capture_s": sum(c.capture_seconds for c in codecs),
             "captures": sum(c.captures for c in codecs),
-            "graphs": sum(len(c._graphs) for c in codecs),
+            "graphs": sum(len(c.graph_cache.entries) for c in codecs),
             "graph_pool_bytes": sum(graph_pool_bytes(c) for c in codecs)}
 
 
@@ -2016,7 +2012,7 @@ def phase_residual(wrappers, batch: int = 16, queue: int = 4):
     # phase split of one more pass, each part fenced with synchronize
     idxs, t_vq = timed(lambda: [res._encode_idx(x) for x in xs])
     rec, t_rec = timed(lambda: [res._rec_from_idx(i) for i in idxs])
-    per_batch, t_flow = timed(lambda: res.codec._compress_deferred_many(
+    per_batch, t_flow = timed(lambda: res.codec.encode_queue(
         [res._tiles(x - r) for x, r in zip(xs, rec)],
         [res._tiles(r) for r in rec]))
     _, t_pack = timed(lambda: (
@@ -2700,7 +2696,7 @@ def phase_visualize(wrappers, ckpt: str, batch: int = 16, grid: int = 8):
     from finalproject_losslessimagecompression_tpu_torch.cli.train import (
         load_config,
     )
-    from finalproject_losslessimagecompression_tpu_torch.models.exact import (
+    from finalproject_losslessimagecompression_tpu_torch.utils.graphs import (
         set_deterministic_cuda,
     )
     from finalproject_losslessimagecompression_tpu_torch.ops.rounding import (
@@ -3032,7 +3028,7 @@ def scaleout_gloo_rank(out_dir):
     from finalproject_losslessimagecompression_tpu_torch.demo.multichip import (  # noqa: E501
         vq_check,
     )
-    from finalproject_losslessimagecompression_tpu_torch.models.exact import (
+    from finalproject_losslessimagecompression_tpu_torch.utils.graphs import (
         set_deterministic_cuda,
     )
     from finalproject_losslessimagecompression_tpu_torch.parallel.flow_codec import (  # noqa: E501

@@ -46,7 +46,7 @@ import torch
 
 from .codec import interleaved as IL
 from .codec.cdf import NBINS, lower_bin
-from .codec.container import pack_streams, pack_streams_many, unpack_streams
+from .codec.container import pack_streams, unpack_streams
 from .codec.cuda_rans import decode_ring_words
 from .demo import stress
 from .models.config import (
@@ -55,7 +55,7 @@ from .models.config import (
     FlowCfg,
     level_plans,
 )
-from .models.exact import FlowCodec
+from .models.exact import FlowCodec, finish, pack_queue
 from .models.idflow import IDFlow, log_likelihood, resolve_device
 from .models.invertible import coupling_split
 from .train.optim import build_optimizer
@@ -209,17 +209,10 @@ def bench_e2e(cfg, model, batch: int, iters: int, queue: int = 4) -> dict:
     analytic_bpd = float(-lp.mean()) / math.log(2.0)
 
     # the JAX bench's phase split of one more pass, each phase fenced
-    per_batch, t_enc = _timed(lambda: codec._compress_deferred_many(xs),
-                              device)
-    flat = [e for encs, _ in per_batch for e in encs]
-    blobs, t_pack = _timed(lambda: pack_streams_many(flat), device)
-    nl = cfg.nsplit
-    packed2 = [(blobs[i * nl:(i + 1) * nl], info)
-               for i, (_, info) in enumerate(per_batch)]
-    (_, oks), t_dec = _timed(lambda: codec._decompress_deferred_many(packed2),
-                             device)
-    _, t_verify = _timed(lambda: codec._check_got(
-        [bool(torch.stack(oks).all())]), device)
+    per_batch, t_enc = _timed(lambda: codec.encode_queue(xs), device)
+    packed2, t_pack = _timed(lambda: pack_queue(per_batch), device)
+    (xs2, oks), t_dec = _timed(lambda: codec.decode_queue(packed2), device)
+    _, t_verify = _timed(lambda: finish(xs2, oks), device)
     replayed = codec.granularity == "fused" and codec.graphs
     phases = {"encode_device_s": t_enc, "pack_host_s": t_pack,
               "decode_device_s": t_dec, "verify_sync_s": t_verify,
@@ -241,9 +234,9 @@ def bench_e2e(cfg, model, batch: int, iters: int, queue: int = 4) -> dict:
         before = _launches()
         _round_trip(codec, xs)
         launches = {k: n - before[k] for k, n in _launches().items()}
-        if set(launches.values()) != {nl}:
+        if set(launches.values()) != {cfg.nsplit}:
             raise AssertionError(f"a queue pass launched {launches}, not "
-                                 f"{nl} of each kernel")
+                                 f"{cfg.nsplit} of each kernel")
         busy = profile_busy(lambda: _round_trip(codec, xs), want=launches,
                             label="bench_e2e")
     return {

@@ -43,9 +43,9 @@ the JAX package fails loudly instead of decoding garbage.  The codecs run
 at `--granularity` (default: the codec's own, so every pipeline runs
 "fused" on the card: a command's queue runs eagerly the first time its
 chunk layout is met and as a CUDA graph replay from the second time on,
-at most FlowCodec.MAX_GRAPHS graphs kept per flow); containers are
-byte-identical across the granularities, so the fingerprint carries
-none, as in JAX.
+at most `utils.graphs.GraphCache.MAX_GRAPHS` graphs kept per flow);
+containers are byte-identical across the granularities, so the
+fingerprint carries none, as in JAX.
 
 Each file is stored as the smaller of the flow container and a stored
 escape (`stored-png`, or `stored-zlib` for channel counts PNG does not take

@@ -48,8 +48,8 @@ def encode_tensor(latent, mean, logscale, num_streams: int = 8192) -> bytes:
     )
 
 
-def decode_streams_deferred_many(encs, means, logscales, fills=None,
-                                 tail_starts=None):
+def decode_many_deferred(encs, means, logscales, fills=None,
+                         tail_starts=None):
     """Decode several containers without a host sync.
 
     Returns one (x, ok, lo) per container: decoded grid values shaped like
@@ -104,9 +104,9 @@ def states_ok(hi: torch.Tensor, lo: torch.Tensor, tail_start=0):
 
 def decode_streams_deferred(enc, mean, logscale, fill=None, tail_start=0):
     """Decode one container without a host sync (see
-    `decode_streams_deferred_many`): returns (x, ok, lo)."""
-    return decode_streams_deferred_many([enc], [mean], [logscale], [fill],
-                                        [tail_start])[0]
+    `decode_many_deferred`): returns (x, ok, lo)."""
+    return decode_many_deferred([enc], [mean], [logscale], [fill],
+                                [tail_start])[0]
 
 
 def decode_tensor_deferred(blob: bytes, mean, logscale):

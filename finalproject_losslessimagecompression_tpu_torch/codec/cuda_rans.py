@@ -25,10 +25,11 @@ dependence over k steps (latency for the small containers, issue rate for
 the large ones: a container is one CTA on one SM); they move few bytes.
 
 Launch counts.  Each wrapper's `launches` adds one where it launches its
-kernel and nowhere else.  A launch made while a CUDA graph is captured
-(or during the capture's warm-up, inside `record_launches`) is tallied
-into the capture instead, and `CountedGraph.replay` adds the graph's
-tally to the counters on every replay, since a replay runs no Python.
+kernel and nowhere else (`utils.graphs.count_launch`).  A launch made
+while a CUDA graph is captured (inside `utils.graphs.record_launches`) is
+tallied into the capture instead, and `utils.graphs.CountedGraph.replay`
+adds the graph's tally to the counters on every replay, since a replay
+runs no Python.
 
 Dispatch is by device: a CUDA tensor launches the kernel (or raises), a CPU
 tensor runs the plain version in codec/interleaved.py (`encode_plain`,
@@ -37,24 +38,30 @@ Encode and decode derive the backend from the same predicate, the device of
 their tensors, so a message decodes on the backend that encoded it.
 
 The library is built with nvcc at first use into the package's `build/`
-directory, keyed by a hash of the source and flags, and bound with ctypes.
+directory, keyed by a hash of the source and flags (`native.build_native`),
+and bound with ctypes.
 A failed build or launch raises.
 """
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import math
 import os
-import shutil
 import threading
 from typing import Optional
 
 import torch
 
+from ..utils.graphs import count_launch
 from .interleaved import cdf_prepass_plain, decode_plain, encode_plain
-from .native import CSRC_DIR, build_native
+from .native import (
+    CSRC_DIR,
+    build_native,
+    check_launch,
+    find_nvcc,
+    stream,
+)
 
 _SRC = os.path.join(CSRC_DIR, "rans_kernels.cu")
 NVCC_FLAGS = [
@@ -67,19 +74,9 @@ _lock = threading.Lock()
 _lib = None
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the rANS kernels cannot be built")
-
-
 def build() -> str:
     """Compile the kernels (once per source hash) and return the .so path."""
-    return build_native(_SRC, _nvcc(), NVCC_FLAGS, "rans_kernels")
+    return build_native(_SRC, find_nvcc(), NVCC_FLAGS, "rans_kernels")
 
 
 def _load():
@@ -117,66 +114,6 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _raise_if(err: int, what: str):
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
-# per thread, the tallies of the captures in progress (innermost last)
-_captures = threading.local()
-
-
-def _launched(wrapper, counter: str = "launches") -> None:
-    """Count one launch of `wrapper`'s kernel on its attribute `counter`:
-    into the innermost `record_launches` tally while one is open (keyed by
-    the wrapper, or by (wrapper, counter) for a counter other than
-    `launches`), else on the attribute."""
-    key = wrapper if counter == "launches" else (wrapper, counter)
-    stack = getattr(_captures, "stack", None)
-    if stack:
-        stack[-1][key] = stack[-1].get(key, 0) + 1
-    else:
-        setattr(wrapper, counter, getattr(wrapper, counter) + 1)
-
-
-@contextlib.contextmanager
-def record_launches():
-    """Within this block, launches are tallied into the yielded dict
-    ({wrapper: launches}) and not added to the wrappers' counters: the
-    kernels are being captured into a CUDA graph, or run as its warm-up."""
-    stack = getattr(_captures, "stack", None)
-    if stack is None:
-        stack = _captures.stack = []
-    tally = {}
-    stack.append(tally)
-    try:
-        yield tally
-    finally:
-        stack.pop()
-
-
-class CountedGraph:
-    """A captured graph (anything with `replay()`, a torch.cuda.CUDAGraph
-    on the card) with the kernel launches it holds, as `record_launches`
-    tallied them during its capture: each replay adds them to the
-    wrappers' counters."""
-
-    def __init__(self, graph, launches):
-        self.graph = graph
-        self.launches = dict(launches)
-
-    def replay(self) -> None:
-        self.graph.replay()
-        for key, n in self.launches.items():
-            wrapper, counter = (key if isinstance(key, tuple)
-                                else (key, "launches"))
-            setattr(wrapper, counter, getattr(wrapper, counter) + n)
-
-
 def rans_cdf_prepass(v: torch.Tensor, m: torch.Tensor, s: torch.Tensor,
                      lower: torch.Tensor) -> torch.Tensor:
     """Coding records of window-clamped bins v (int32), means and scales
@@ -193,10 +130,10 @@ def rans_cdf_prepass(v: torch.Tensor, m: torch.Tensor, s: torch.Tensor,
     rec = torch.empty((*v.shape, 2), dtype=torch.int64, device=dev)
     err = _load().rans_cdf_prepass_launch(
         v.data_ptr(), m.data_ptr(), s.data_ptr(), lower.data_ptr(),
-        rec.data_ptr(), v.numel(), _stream(),
+        rec.data_ptr(), v.numel(), stream(),
     )
-    _raise_if(err, "rans_cdf_prepass_kernel")
-    _launched(rans_cdf_prepass)
+    check_launch(err, "rans_cdf_prepass_kernel")
+    count_launch(rans_cdf_prepass)
     return rec
 
 
@@ -242,10 +179,10 @@ def rans_encode(v: torch.Tensor, m: torch.Tensor, s: torch.Tensor,
     err = _load().rans_encode_launch(
         rec.data_ptr(), None if seeds is None else seeds.data_ptr(),
         words.data_ptr(), flags.data_ptr(), hi.data_ptr(), lo.data_ptr(),
-        C, S, k, _stream(),
+        C, S, k, stream(),
     )
-    _raise_if(err, "rans_encode_kernel")
-    _launched(rans_encode)
+    check_launch(err, "rans_encode_kernel")
+    count_launch(rans_encode)
     return words, flags, hi, lo
 
 
@@ -320,10 +257,10 @@ def rans_decode(buf: torch.Tensor, num_words, hi: torch.Tensor,
         buf.data_ptr(), buf.shape[-1], nw.data_ptr(), hi.data_ptr(),
         lo.data_ptr(), m.data_ptr(), s.data_ptr(), lower.data_ptr(),
         vals.data_ptr(), hi_out.data_ptr(), lo_out.data_ptr(), C, S, k,
-        threads, per, _stream(),
+        threads, per, stream(),
     )
-    _raise_if(err, "rans_decode_kernel")
-    _launched(rans_decode)
+    check_launch(err, "rans_decode_kernel")
+    count_launch(rans_decode)
     return vals, hi_out, lo_out
 
 
@@ -344,9 +281,9 @@ def cdf_eval(v: torch.Tensor, m: torch.Tensor, s: torch.Tensor,
     out = torch.empty(n, dtype=torch.int64, device=dev)
     err = _load().cdf_eval_launch(
         v.data_ptr(), m.data_ptr(), s.data_ptr(), lower.data_ptr(),
-        out.data_ptr(), n, _stream(),
+        out.data_ptr(), n, stream(),
     )
-    _raise_if(err, "cdf_eval_kernel")
+    check_launch(err, "cdf_eval_kernel")
     return out
 
 
@@ -363,5 +300,5 @@ def depth_probe(kind: str, steps: int, out: torch.Tensor) -> None:
     _check(out, "out", torch.int64, (32,), out.device)
     err = _load().depth_probe_launch(
         DEPTH_PROBES[kind], steps, 0.1, 0.7, -998, 4099, out.data_ptr(),
-        _stream())
-    _raise_if(err, "depth_probe_kernel")
+        stream())
+    check_launch(err, "depth_probe_kernel")

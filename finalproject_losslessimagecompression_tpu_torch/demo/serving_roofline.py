@@ -127,8 +127,8 @@ def _pass(codec, xs, xs_np, iters, device):
         raise AssertionError("serving round trip is not bit-exact")
 
     def run():
-        codec._compress_deferred_many(xs)
-        return codec._decompress_deferred_many(packed)
+        codec.encode_queue(xs)
+        return codec.decode_queue(packed)
 
     _, sec = _median(run, iters, device)
     return sec, float(np.mean([codec.real_bpd(b, i) for b, i in packed]))
@@ -173,9 +173,9 @@ def run(batch: int = 16, queue: int = 4, iters: int = 5,
         packed, recs = bench._round_trip(codec, xs)
     if not bench._exact(recs, xs_np):
         raise AssertionError("fused round trip is not bit-exact")
-    _, t_comp_total = _median(lambda: codec._compress_deferred_many(xs),
+    _, t_comp_total = _median(lambda: codec.encode_queue(xs),
                               iters, device)
-    _, t_dec_total = _median(lambda: codec._decompress_deferred_many(packed),
+    _, t_dec_total = _median(lambda: codec.decode_queue(packed),
                              iters, device)
     del msgs
 

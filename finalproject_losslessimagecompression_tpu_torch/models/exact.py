@@ -14,8 +14,9 @@ must equal those of the inverse pass.  Both directions therefore call the
 same functions, `IDFlow.prior_params`, `IDFlow.couple_t` and
 `IDFlow.cond_features`, on inputs of the same shapes made contiguous the
 same way, and a codec on the card pins cuDNN and cuBLAS to deterministic
-float32 arithmetic: building a CUDA
-FlowCodec sets `torch.backends.cudnn.deterministic = True`,
+float32 arithmetic: building a CUDA FlowCodec (its graph cache,
+`utils.graphs.set_deterministic_cuda`) sets
+`torch.backends.cudnn.deterministic = True`,
 `torch.backends.cudnn.benchmark = False`,
 `torch.backends.cudnn.allow_tf32 = False` and
 `torch.backends.cuda.matmul.allow_tf32 = False` for the process.
@@ -32,81 +33,65 @@ the CPU, as JAX picks "fused" on its accelerator.
 - "fused" runs the whole compress and the whole decompress of a queue as
   one program each: `compress_pipeline` / `decompress_pipeline`, functions
   of static-shaped device tensors (JAX `_compress_all` / `_decompress_all`).
-  On the card the first call of a queue signature (the batch sizes,
-  whether conds are given) runs the program eagerly, as "level" would; the
-  second captures it into a CUDA graph (after an eager warm-up:
-  `capture_seconds`) and replays it, and later calls replay.  So a one-off
-  queue, such as a one-shot CLI command, pays no capture, and a codec
-  keeps at most MAX_GRAPHS graphs, least recently used dropped first, in
-  one memory pool (`graph_pool`) whose freed blocks the next capture
-  reuses.  Before a replay the inputs are copied into the graph's static
-  inputs: the images, or a decompress queue's containers in one pinned
-  copy of their padded form (`interleaved.pad_many`: the bits-back hole,
-  the tail check and the escape patch read device values there, on every
-  path).  After it the outputs are cloned, so that a later replay never
-  overwrites what a caller holds.  A decompress queue with a container of
-  more than `MAX_OUTLIERS` escapes takes the level path, as in JAX, and is
-  counted in `level_fallbacks`.  On the CPU the fused pipeline runs
-  eagerly (there are no graphs); on the card a capture or replay that
-  fails raises.  A graph reads the parameters by address, so it follows
-  in-place updates (optimizer steps, `load_state_dict`); code that rebinds
-  a parameter tensor needs a new codec.  The containers are byte-identical
-  across the modes.
+  On the card each is a CUDA graph of the codec's `utils.graphs.GraphCache`
+  (`graph_cache`, one memory pool `graph_pool`), keyed by the queue's
+  layout: the batch sizes, whether conds are given and, for a decompress,
+  MAX_OUTLIERS.  So a one-off queue, such as a one-shot CLI command, runs
+  eagerly and pays no capture, and the second call of a layout captures.
+  A decompress queue's static input is its containers' padded form in one
+  host tensor (`interleaved.pad_many`: the bits-back hole, the tail check
+  and the escape patch read device values there, on every path).  A
+  decompress queue with a container of more than `MAX_OUTLIERS` escapes
+  takes the level path, as in JAX, and is counted in `level_fallbacks`.
+  On the CPU the fused pipeline runs eagerly (there are no graphs).  The
+  containers are byte-identical across the modes.
 
 Counters and spans.  `captures`, `capture_seconds`, `replays`,
-`eager_calls`, `evictions` and `level_fallbacks` count what the fused
-mode did; each counted event is also a program span of the same name
-(`utils.profiling.span`: a `record_function` range on the profiler's
-timeline while it records, nothing otherwise).  The spans, at the host
-boundaries of the two calls (none inside a captured pipeline, whose
-replay runs no Python):
+`eager_calls` and `evictions` are the graph cache's, and its spans are
+`codec.eager` (a signature's first call, the level path and the CPU's
+fused pipeline), `codec.capture`, `codec.evict`, `codec.stage`,
+`codec.replay` and `codec.clone`; `level_fallbacks` counts queues decoded
+by level for their escapes (`codec.level_fallback`).  Each counted event
+is also a program span of the same name (`utils.profiling.span`: a
+`record_function` range on the profiler's timeline while it records,
+nothing otherwise).  The codec's own spans, at the host boundaries of the
+two calls (none inside a captured pipeline, whose replay runs no Python):
 - `codec.compress`: all of `compress_many`;
 - `codec.decompress`: all of `decompress_many`, the check or fetch
-  included (a ResidualCodec opens it around the flow's decode alone);
+  included (a ResidualCodec opens both around the flow's queue alone);
 - `codec.unpack`: the containers' parse, validation and padded form;
-- `codec.stage`: pinning and host-to-device copies, the images' upload
-  and the static inputs' fill;
-- `codec.replay`: a graph's `replay()` call; `codec.clone`: its outputs'
-  copy;
-- `codec.eager`: a signature's first, eager call, the level path and the
-  CPU's fused pipeline; `codec.capture`: a warm-up and capture;
-  `codec.evict`: a graph dropped from the cache; `codec.level_fallback`: a
-  queue decoded by level for its escapes;
+- `codec.stage`: the images' upload and the static inputs' fill;
 - `codec.pack` (`container.pack_streams_many`) and `codec.fetch`: the
   host side of the one device-to-host copy each, whose blocking copy is
   a `codec.sync` (the host waiting on the card), as is the state check.
 
-Host syncs.  `compress_many` queues every level of every batch (or replays
-one graph) and then packs all containers with one device-to-host copy;
-`decompress_many` queues every decode (the containers go up through pinned,
-non-blocking copies) and checks every state invariant, plus the decoded
-images with fetch=True, in one device-to-host copy.
+Host syncs.  `encode_queue` and `decode_queue` queue a whole queue without
+a host sync; every codec (FlowCodec, ResidualCodec, TwoLevelCodec) names
+that seam so.  `compress_many` then packs all containers with one
+device-to-host copy (`pack_queue`), and `decompress_many` checks every
+state invariant, plus the decoded images with fetch=True, in one
+device-to-host copy (`finish`).  The containers go up through pinned,
+non-blocking copies.
 
 Launches.  Both walk the queue level-major: at each level every batch's
 flow and prior run, then one rANS launch codes that level's containers of
 all batches (one per stream layout, should batch sizes differ), so a queue
 of any length launches each coding kernel once per level.  A replayed
 graph holds exactly those launches and adds them to the wrappers' counters
-(`cuda_rans.CountedGraph`); its warm-up and capture count none.  The
-containers are byte-identical to per-batch coding: the batches' streams
-never mix.
+(`utils.graphs.CountedGraph`); its capture counts none.  The containers
+are byte-identical to per-batch coding: the batches' streams never mix.
 """
 
 from __future__ import annotations
 
-import dataclasses
-import time
-from collections import OrderedDict
 from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..codec.coder import decode_streams_deferred_many, encode_tensors_deferred
+from ..codec.coder import decode_many_deferred, encode_tensors_deferred
 from ..codec.container import pack_streams_many, unpack_streams
-from ..codec.cuda_rans import CountedGraph, record_launches
 from ..codec.interleaved import (
-    EncodedStreams,
     from_padded_many,
     make_seeds,
     pad_many,
@@ -114,42 +99,47 @@ from ..codec.interleaved import (
     to_device,
 )
 from ..ops.reshape import depth_to_space, space_to_depth
+from ..utils.graphs import GraphCache
 from ..utils.profiling import span
 from .idflow import IDFlow, fold_batch, unfold_batch
-
-
-def set_deterministic_cuda() -> None:
-    """Deterministic cuDNN algorithms, no autotuning, no TF32."""
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-
 
 GRANULARITIES = ("fused", "level", "nn")
 
 
-def _remember(cache: OrderedDict, key, value, limit: int) -> None:
-    """Put key last in an LRU cache and drop the least recently used
-    entries past `limit`."""
-    cache[key] = value
-    cache.move_to_end(key)
-    while len(cache) > limit:
-        cache.popitem(last=False)
+def pack_queue(per_batch):
+    """[(blobs, info)] of an encoded queue [(per-level EncodedStreams,
+    info)]: every container packed with one device-to-host copy, then
+    split per batch."""
+    blobs = pack_streams_many([e for encs, _ in per_batch for e in encs])
+    out, pos = [], 0
+    for encs, info in per_batch:
+        out.append((blobs[pos:pos + len(encs)], info))
+        pos += len(encs)
+    return out
 
 
-def _cloned(out):
-    """A copy of a pipeline's outputs (tensors, EncodedStreams, lists and
-    tuples of them) that no later graph replay writes to."""
-    if isinstance(out, torch.Tensor):
-        return out.clone()
-    if isinstance(out, EncodedStreams):
-        return dataclasses.replace(out, **{
-            f.name: getattr(out, f.name).clone()
-            for f in dataclasses.fields(out)
-            if isinstance(getattr(out, f.name), torch.Tensor)})
-    if isinstance(out, (list, tuple)):
-        return type(out)(_cloned(o) for o in out)
+def finish(xs, oks, fetch: bool = False):
+    """A decoded queue's batches once every state-invariant flag in `oks`
+    (device booleans) holds, checked with one blocking copy: the device
+    tensors, or with fetch=True host numpy arrays, copied in the same
+    transfer as the flags.  Raises ValueError if a flag is false."""
+    if fetch:
+        with span("codec.fetch"):
+            flat = torch.cat([x.reshape(-1) for x in xs]
+                             + [torch.stack(oks).to(torch.float32)])
+            with span("codec.sync"):
+                host = flat.cpu().numpy()
+            ok = bool(np.all(host[host.size - len(oks):] == 1.0))
+            out, pos = [], 0
+            for x in xs:
+                out.append(host[pos:pos + x.numel()].reshape(tuple(x.shape)))
+                pos += x.numel()
+    else:
+        with span("codec.sync"):
+            ok = bool(torch.stack(oks).all())
+        out = xs
+    if not ok:
+        raise ValueError("rANS decode failed: state did not return to 2^32")
     return out
 
 
@@ -162,10 +152,6 @@ class FlowCodec:
     # escapes per container that the fused decompress patches in the
     # program; an instance may override it
     MAX_OUTLIERS = 256
-    # graphs kept per codec (both directions), and signatures remembered
-    # as met once; the least recently used goes first
-    MAX_GRAPHS = 8
-    MAX_SEEN = 64
 
     # symbols per stream: level 0 is the only unseeded level (nothing is
     # decoded after it, so nothing can recover donated words from it) and
@@ -189,18 +175,19 @@ class FlowCodec:
         # "nn" is the level path here (module docstring)
         self.granularity = "level" if granularity == "nn" else granularity
         self.level_fallbacks = 0  # fused decompress queues decoded by level
-        self.graphs = self.device.type == "cuda"  # "fused" as CUDA graphs
-        self.captures = 0  # graphs captured
-        self.replays = 0  # graph replays, a capturing call's included
-        self.eager_calls = 0  # pipelines run op by op (`codec.eager`)
-        self.evictions = 0  # graphs dropped past MAX_GRAPHS
-        self.capture_seconds = 0.0  # warm-ups and captures of the graphs
-        self.graph_pool = None  # the graphs' memory pool, at first capture
-        self._seen = OrderedDict()  # signatures met once, not captured
-        # signature -> (graph, static inputs, outputs), least recent first
-        self._graphs = OrderedDict()
-        if self.device.type == "cuda":
-            set_deterministic_cuda()
+        # both directions' graphs ("fused" on the card); pins the
+        # arithmetic contract on the card
+        self.graph_cache = GraphCache(self.device, "codec")
+
+    # the graph cache's counters and pool, which bench.py, chip_smoke.py
+    # and lic_bench read
+    graphs = property(lambda self: self.graph_cache.graphs)
+    captures = property(lambda self: self.graph_cache.captures)
+    capture_seconds = property(lambda self: self.graph_cache.capture_seconds)
+    replays = property(lambda self: self.graph_cache.replays)
+    eager_calls = property(lambda self: self.graph_cache.eager_calls)
+    evictions = property(lambda self: self.graph_cache.evictions)
+    graph_pool = property(lambda self: self.graph_cache.pool)
 
     # ------------------------------------------------------------------
     # stream policy
@@ -309,7 +296,7 @@ class FlowCodec:
             # level's final lo limbs; the check skips this level's own
             # seeded prefix (its donor's donated count), and level 0's full
             # check closes the chain
-            decoded = decode_streams_deferred_many(
+            decoded = decode_many_deferred(
                 [e[level] for e in encs], [m for m, _ in params],
                 [ls for _, ls in params],
                 fills=None if last else prev_lo,
@@ -328,98 +315,10 @@ class FlowCodec:
         return xs, oks
 
     # ------------------------------------------------------------------
-    # the fused mode's graphs
-    # ------------------------------------------------------------------
-
-    def _fused(self, key, args, pipeline):
-        """pipeline(*args), args being lists of tensors (or None).  On the
-        CPU (`graphs` false) it runs eagerly.  On the card the first call
-        of a queue signature `key` runs it eagerly too; the second
-        captures it as a CUDA graph over static copies of the args and
-        replays it, and every later call fills the static inputs with its
-        own values and replays.  The graphs are kept least recently used
-        first, at most MAX_GRAPHS of them; a replay's outputs are cloned."""
-        if not self.graphs:
-            return self._eager(lambda: pipeline(*args))
-        entry = self._graphs.get(key)
-        if entry is None and key not in self._seen:
-            _remember(self._seen, key, None, self.MAX_SEEN)
-
-            def first():
-                with span("codec.stage"):
-                    staged = [None if a is None else [
-                        to_device(t, self.device) for t in a] for a in args]
-                return pipeline(*staged)
-
-            return self._eager(first)
-        if entry is None:
-            del self._seen[key]
-            inputs = [None if a is None else [
-                torch.empty(t.shape, dtype=t.dtype, device=self.device)
-                for t in a] for a in args]
-            self._fill(inputs, args)
-            with span("codec.capture"):
-                graph, outputs = self._capture(lambda: pipeline(*inputs))
-            entry = (graph, inputs, outputs)
-            self._graphs[key] = entry
-            while len(self._graphs) > self.MAX_GRAPHS:
-                with span("codec.evict"):
-                    self.evictions += 1
-                    self._graphs.popitem(last=False)
-        else:
-            self._graphs.move_to_end(key)
-            self._fill(entry[1], args)
-        graph, _, outputs = entry
-        with span("codec.replay"):
-            graph.replay()
-        self.replays += 1
-        with span("codec.clone"):
-            return _cloned(outputs)
-
-    def _eager(self, run):
-        """run(), a pipeline op by op: counted in `eager_calls`."""
-        with span("codec.eager"):
-            self.eager_calls += 1
-            return run()
-
-    def _capture(self, run):
-        """(CountedGraph, outputs) of `run()` captured on the codec's
-        device.  A warm-up on a side stream first builds what capture may
-        not (the kernels' library, cuDNN plans, cuBLAS handles); neither
-        counts a launch."""
-        t0 = time.perf_counter()
-        with torch.cuda.device(self.device):
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side), record_launches():
-                run()
-            torch.cuda.current_stream().wait_stream(side)
-            if self.graph_pool is None:
-                self.graph_pool = torch.cuda.graph_pool_handle()
-            graph = torch.cuda.CUDAGraph()
-            with record_launches() as tally:
-                with torch.cuda.graph(graph, pool=self.graph_pool):
-                    outputs = run()
-        self.capture_seconds += time.perf_counter() - t0
-        self.captures += 1
-        return CountedGraph(graph, tally), outputs
-
-    @staticmethod
-    def _fill(static, args) -> None:
-        """Copy each arg's tensors into the static inputs (host tensors
-        to the card from pinned memory, without blocking the host)."""
-        with span("codec.stage"):
-            for dsts, srcs in zip(static, args):
-                for dst, src in zip(dsts or (), srcs or ()):
-                    if dst.device.type == "cuda" and src.device.type == "cpu":
-                        src = src.pin_memory()
-                    dst.copy_(src, non_blocking=True)
-
-    # ------------------------------------------------------------------
     # compress
     # ------------------------------------------------------------------
 
-    def _compress_deferred_many(self, xs, conds=None):
+    def encode_queue(self, xs, conds=None):
         """Queue the whole encode of a queue of batches without a host
         sync; returns [(per-level EncodedStreams, info)] per batch."""
         with span("codec.stage"):
@@ -429,9 +328,10 @@ class FlowCodec:
         if self.granularity == "fused":
             key = ("compress", tuple(int(x.shape[0]) for x in xs),
                    conds is not None)
-            encs = self._fused(key, (xs, conds), self.compress_pipeline)
+            encs = self.graph_cache(key, self.compress_pipeline, (xs, conds))
         else:
-            encs = self._eager(lambda: self.compress_pipeline(xs, conds))
+            encs = self.graph_cache.eager(
+                lambda: self.compress_pipeline(xs, conds))
         return [(e, {"batch": int(x.shape[0])}) for e, x in zip(encs, xs)]
 
     def compress(self, x, cond=None) -> Tuple[List[bytes], dict]:
@@ -443,14 +343,7 @@ class FlowCodec:
         """Serving encode: queue every batch, then pack every container with
         one host sync.  Returns a list of (blobs, info)."""
         with span("codec.compress"):
-            per_batch = self._compress_deferred_many(xs, conds)
-            blobs = pack_streams_many([e for encs, _ in per_batch
-                                       for e in encs])
-            out, pos = [], 0
-            for encs, info in per_batch:
-                out.append((blobs[pos : pos + len(encs)], info))
-                pos += len(encs)
-            return out
+            return pack_queue(self.encode_queue(xs, conds))
 
     # ------------------------------------------------------------------
     # decompress
@@ -474,7 +367,7 @@ class FlowCodec:
                 )
         return encs
 
-    def _decompress_deferred_many(self, packed, conds=None):
+    def decode_queue(self, packed, conds=None):
         """Queue the whole decode of [(blobs, info), ...]; returns (xs, oks)
         with oks the per-level state-invariant flags, still on the
         device."""
@@ -504,35 +397,14 @@ class FlowCodec:
             return pipeline([flat], conds)
 
         if self.granularity != "fused":
-            return self._eager(level)
+            return self.graph_cache.eager(level)
         if all(m == self.MAX_OUTLIERS for _, _, m in layouts):
             key = ("decompress", tuple(batches), conds is not None,
                    self.MAX_OUTLIERS)
-            return self._fused(key, ([host], conds), pipeline)
+            return self.graph_cache(key, pipeline, ([host], conds))
         with span("codec.level_fallback"):
             self.level_fallbacks += 1
-            return self._eager(level)
-
-    @staticmethod
-    def _check_got(got) -> None:
-        if not all(bool(np.all(g)) for g in got):
-            raise ValueError(
-                "rANS decode failed: state did not return to 2^32")
-
-    def _fetch(self, xs, oks):
-        """One device-to-host copy of the decoded batches and the flags."""
-        with span("codec.fetch"):
-            flat = torch.cat([x.reshape(-1) for x in xs]
-                             + [torch.stack(oks).to(torch.float32)])
-            with span("codec.sync"):
-                host = flat.cpu().numpy()
-            self._check_got([host[host.size - len(oks):] == 1.0])
-            out, pos = [], 0
-            for x in xs:
-                out.append(host[pos : pos + x.numel()].reshape(
-                    tuple(x.shape)))
-                pos += x.numel()
-            return out
+            return self.graph_cache.eager(level)
 
     def decompress(self, blobs: Sequence[bytes], info: dict, cond=None,
                    fetch: bool = False):
@@ -549,18 +421,7 @@ class FlowCodec:
         then verify all state invariants with one host sync (fetch=True
         also returns the batches, as numpy, in that sync)."""
         with span("codec.decompress"):
-            xs, oks = self._decompress_deferred_many(packed, conds)
-            if fetch:
-                return self._fetch(xs, oks)
-            self._check_oks(oks)
-            return xs
-
-    @classmethod
-    def _check_oks(cls, oks) -> None:
-        """The state invariants' flags, in one blocking copy."""
-        with span("codec.sync"):
-            got = bool(torch.stack(oks).all())
-        cls._check_got([got])
+            return finish(*self.decode_queue(packed, conds), fetch)
 
     # ------------------------------------------------------------------
 

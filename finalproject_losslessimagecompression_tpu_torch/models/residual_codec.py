@@ -10,19 +10,22 @@ A container decodes with no side information: the receiver rebuilds the
 reconstruction from the index stream.  Both ends compute it with one
 function, `_rec_from_idx` (round_to_grid(decode(codebook[idx]) * 0.5 + 0.5)),
 on the same batch shape, and a codec on the card pins cuDNN and cuBLAS to
-deterministic float32 arithmetic (`exact.set_deterministic_cuda`), so both
-ends condition the flow's priors on the same bits.  x - rec and res + rec
-are exact in float32 on the 1/256 grid.
+deterministic float32 arithmetic (`utils.graphs.set_deterministic_cuda`),
+so both ends condition the flow's priors on the same bits.  x - rec and
+res + rec are exact in float32 on the 1/256 grid.
 
 The flow part of a queue goes to the FlowCodec whole, so under its
 default granularity on the card ("fused") it is one CUDA graph replay
-each way; the VQ encode and the reconstruction run eagerly.
+each way; the VQ encode and the reconstruction run eagerly.  As every
+codec here, it names its queue without a host sync `encode_queue` and
+`decode_queue` (models/exact.py).
 
 Index stream cost: ceil(log2(K)) bits per index, counted in coded_bits and
 real_bpd.
 
-Program spans (`utils.profiling.span`; the flow's own are FlowCodec's):
-`residual.compress` and `residual.decompress`, all of each call;
+Program spans (`utils.profiling.span`; the flow's own are FlowCodec's,
+its `codec.compress` and `codec.decompress` around the flow's queue
+alone): `residual.compress` and `residual.decompress`, all of each call;
 `residual.vq_encode` (`_encode_idx`); `residual.reconstruct`
 (`_rec_from_idx`, both directions); `residual.index_pack` (the indices'
 device-to-host copy, a `codec.sync`, then the bit packing);
@@ -39,8 +42,9 @@ import torch
 
 from ..ops.reshape import patch_merge, patch_split
 from ..ops.rounding import round_to_grid
+from ..utils.graphs import set_deterministic_cuda
 from ..utils.profiling import span
-from .exact import FlowCodec, set_deterministic_cuda
+from .exact import FlowCodec, finish, pack_queue
 from .vqvae import VQVAE
 
 _IDX_MAGIC = b"VQIX"
@@ -136,47 +140,58 @@ class ResidualCodec:
         containers, info)."""
         return self.compress_many([x])[0]
 
+    def encode_queue(self, xs):
+        """Queue every batch's VQ encode and reconstruction, then the whole
+        queue of residual tiles, with their conditioning tiles, as one
+        FlowCodec queue, without a host sync: [(the flow's per-level
+        EncodedStreams, info)] per batch, info["idx"] the batch's indices
+        on the device."""
+        H, W = self.input_size
+        idxs, res, conds = [], [], []
+        for x in xs:
+            with span("codec.stage"):
+                x = torch.as_tensor(x, dtype=torch.float32,
+                                    device=self.device)
+            if tuple(x.shape[1:3]) != (H, W):
+                raise ValueError(f"batch of {tuple(x.shape[1:3])} "
+                                 f"images, codec input size {(H, W)}")
+            idx = self._encode_idx(x)
+            rec = self._rec_from_idx(idx)
+            idxs.append(idx)
+            res.append(self._tiles(x - rec))
+            conds.append(self._tiles(rec))
+        with span("codec.compress"):
+            per = self.codec.encode_queue(res, conds)
+        return [(encs, {**info, "images": int(x.shape[0]), "idx": idx})
+                for (encs, info), x, idx in zip(per, xs, idxs)]
+
     def compress_many(self, xs):
-        """Serving encode: every batch's VQ encode and reconstruction are
-        queued, then the whole queue of residual tiles, with their
-        conditioning tiles, goes to FlowCodec.compress_many (one rANS
-        launch per level per stream layout, one copy of the containers to
-        the host), and the indices come to the host in one more copy.
-        Byte-identical to per-batch compress.  Returns a list of
-        (idx_blob, blobs, info)."""
+        """Serving encode: the queue (`encode_queue`; one rANS launch per
+        level per stream layout), then one copy of the containers to the
+        host and one more of the indices.  Byte-identical to per-batch
+        compress.  Returns a list of (idx_blob, blobs, info)."""
         with span("residual.compress"):
-            H, W = self.input_size
-            idxs, res, conds = [], [], []
-            for x in xs:
-                with span("codec.stage"):
-                    x = torch.as_tensor(x, dtype=torch.float32,
-                                        device=self.device)
-                if tuple(x.shape[1:3]) != (H, W):
-                    raise ValueError(f"batch of {tuple(x.shape[1:3])} "
-                                     f"images, codec input size {(H, W)}")
-                idx = self._encode_idx(x)
-                rec = self._rec_from_idx(idx)
-                idxs.append(idx)
-                res.append(self._tiles(x - rec))
-                conds.append(self._tiles(rec))
-            packed = self.codec.compress_many(res, conds)
+            per = self.encode_queue(xs)
+            idxs = [info.pop("idx") for _, info in per]
+            packed = pack_queue(per)
             out = []
             with span("residual.index_pack"):
                 flat = torch.cat([i.reshape(-1) for i in idxs])
                 with span("codec.sync"):
                     host = flat.cpu().numpy()
                 pos = 0
-                for idx, x, (blobs, info) in zip(idxs, xs, packed):
+                for idx, (blobs, info) in zip(idxs, packed):
                     n = idx.numel()
                     idx_blob = _pack_indices(
                         host[pos:pos + n].reshape(idx.shape), self.K)
                     pos += n
-                    out.append((idx_blob, blobs,
-                                {**info, "images": int(x.shape[0])}))
+                    out.append((idx_blob, blobs, info))
             return out
 
     @torch.no_grad()
-    def _decompress_deferred_many(self, packed):
+    def decode_queue(self, packed):
+        """Queue the whole decode of [(idx_blob, blobs, info), ...] without
+        a host sync; returns (xs, oks) as FlowCodec.decode_queue."""
         H, W = self.input_size
         with span("residual.index_unpack"):
             idx_np = [_unpack_indices(idx_blob)[0]
@@ -190,7 +205,7 @@ class ResidualCodec:
                 flat[pos:pos + i.size].reshape(i.shape)))
             pos += i.size
         with span("codec.decompress"):
-            tiles, oks = self.codec._decompress_deferred_many(
+            tiles, oks = self.codec.decode_queue(
                 [(blobs, info) for _, blobs, info in packed],
                 [self._tiles(r) for r in recs])
         return [patch_merge(t, H, W) + r for t, r in zip(tiles, recs)], oks
@@ -206,11 +221,7 @@ class ResidualCodec:
         queued, then all state invariants are checked with one host sync
         (fetch=True also returns the batches, as numpy, in that sync)."""
         with span("residual.decompress"):
-            xs, oks = self._decompress_deferred_many(packed)
-            if fetch:
-                return self.codec._fetch(xs, oks)
-            FlowCodec._check_oks(oks)
-            return xs
+            return finish(*self.decode_queue(packed), fetch)
 
     def coded_bits(self, idx_blob: bytes, blobs: Sequence[bytes]) -> int:
         return 8 * len(idx_blob) + FlowCodec.coded_bits(blobs)

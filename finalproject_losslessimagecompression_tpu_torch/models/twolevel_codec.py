@@ -13,7 +13,8 @@ fetch everything in one copy each way, so a queue pass launches each rANS
 kernel once per (sub-flow, level, stream layout): twice for
 configs/config_twolevel.yaml (nsplit 1 on both sub-flows) when the
 batches have one size.  The containers are byte-identical to per-batch
-coding.
+coding.  As every codec here, it names its queue without a host sync
+`encode_queue` and `decode_queue` (models/exact.py).
 
 Exactness needs the upsampling to keep the 1/256 grid, which holds when
 the coded dims are multiples of the rough dims (the upsampling rows are
@@ -53,11 +54,10 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from ..codec.container import pack_streams_many
 from ..ops.reshape import patch_merge, patch_split
 from ..ops.rounding import round_to_grid
 from ..utils.profiling import span
-from .exact import FlowCodec
+from .exact import FlowCodec, finish, pack_queue
 from .twolevel import TwoLevelFlow, adaptive_pool_matrix, pad_edge, pool2d
 
 
@@ -127,28 +127,26 @@ class TwoLevelCodec:
     # -- compress ---------------------------------------------------------
 
     @torch.no_grad()
-    def compress_many(self, xs):
-        """Serving encode of a queue of batches: the rough images of all
-        batches go to one FlowCodec queue and their fine tiles to another,
-        then every container is packed with one host sync.  Returns a list
-        of (blobs, info), the rough containers first in each."""
+    def encode_queue(self, xs):
+        """Queue the encode of a queue of batches without a host sync: the
+        rough images of all batches as one FlowCodec queue and their fine
+        tiles as another.  Returns [(per-level EncodedStreams, info)] per
+        batch, the rough streams first."""
         xs = [torch.as_tensor(x, dtype=torch.float32, device=self.device)
               for x in xs]
         splits = [self._split(x) for x in xs]
-        rough = self.rough_codec._compress_deferred_many(
-            [rx for rx, _ in splits])
-        fine = self.fine_codec._compress_deferred_many(
-            [px for _, px in splits])
-        per = [(list(r_encs) + list(f_encs),
-                {"batch": int(x.shape[0]), "rough": r_info, "fine": f_info})
-               for x, (r_encs, r_info), (f_encs, f_info) in zip(xs, rough,
-                                                                fine)]
-        blobs = pack_streams_many([e for encs, _ in per for e in encs])
-        out, pos = [], 0
-        for encs, info in per:
-            out.append((blobs[pos:pos + len(encs)], info))
-            pos += len(encs)
-        return out
+        rough = self.rough_codec.encode_queue([rx for rx, _ in splits])
+        fine = self.fine_codec.encode_queue([px for _, px in splits])
+        return [(list(r_encs) + list(f_encs),
+                 {"batch": int(x.shape[0]), "rough": r_info, "fine": f_info})
+                for x, (r_encs, r_info), (f_encs, f_info) in zip(xs, rough,
+                                                                 fine)]
+
+    def compress_many(self, xs):
+        """Serving encode of a queue of batches: `encode_queue`, then every
+        container packed with one host sync.  Returns a list of (blobs,
+        info), the rough containers first in each."""
+        return pack_queue(self.encode_queue(xs))
 
     def compress(self, x) -> Tuple[List[bytes], dict]:
         """Encode an NHWC batch on the 1/256 grid -> (blobs, info)."""
@@ -157,12 +155,14 @@ class TwoLevelCodec:
     # -- decompress -------------------------------------------------------
 
     @torch.no_grad()
-    def _decompress_deferred_many(self, packed):
-        cfg = self.cfg
-        nr = cfg.rough.nsplit
-        rxs, oks_r = self.rough_codec._decompress_deferred_many(
+    def decode_queue(self, packed):
+        """Queue the whole decode of [(blobs, info), ...] without a host
+        sync, both sub-flows' queues; returns (xs, oks) as
+        FlowCodec.decode_queue."""
+        nr = self.cfg.rough.nsplit
+        rxs, oks_r = self.rough_codec.decode_queue(
             [(blobs[:nr], info["rough"]) for blobs, info in packed])
-        pxs, oks_f = self.fine_codec._decompress_deferred_many(
+        pxs, oks_f = self.fine_codec.decode_queue(
             [(blobs[nr:], info["fine"]) for blobs, info in packed])
         xs = [self._merge(rx, px) for rx, px in zip(rxs, pxs)]
         return xs, oks_r + oks_f
@@ -177,11 +177,7 @@ class TwoLevelCodec:
         """Serving decode of [(blobs, info), ...]: both sub-flows' queues,
         then every state invariant checked with one host sync (fetch=True
         also returns the batches, as numpy, in that sync)."""
-        xs, oks = self._decompress_deferred_many(packed)
-        if fetch:
-            return self.rough_codec._fetch(xs, oks)
-        FlowCodec._check_oks(oks)
-        return xs
+        return finish(*self.decode_queue(packed), fetch)
 
     def real_bpd(self, blobs: Sequence[bytes], info: dict) -> float:
         cfg = self.cfg

@@ -45,7 +45,7 @@ buffer runs `dense_conv3x3_plain`, which computes the same function with
 (one a layer), `dense_conv3x3.narrow_launches` (one a layer that takes the
 narrow geometry) and `splitk_reduce.launches` (one a layer whose K is
 split), tallied into a CUDA graph's capture inside
-`cuda_rans.record_launches` and added on every replay, as the rANS
+`utils.graphs.record_launches` and added on every replay, as the rANS
 wrappers' are.
 
 The library is built with nvcc at first use into the package's `build/`
@@ -64,9 +64,14 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-# the rANS wrappers' nvcc lookup, launch check, stream and launch tally
-from ..codec.cuda_rans import _launched, _nvcc, _raise_if, _stream
-from ..codec.native import CSRC_DIR, build_native
+from ..codec.native import (
+    CSRC_DIR,
+    build_native,
+    check_launch,
+    find_nvcc,
+    stream,
+)
+from ..utils.graphs import count_launch
 
 _SRC = os.path.join(CSRC_DIR, "dense_conv.cu")
 NVCC_FLAGS = [
@@ -103,7 +108,7 @@ _lib = None
 
 def build() -> str:
     """Compile the kernels (once per source hash) and return the .so path."""
-    return build_native(_SRC, _nvcc(), NVCC_FLAGS, "dense_conv")
+    return build_native(_SRC, find_nvcc(), NVCC_FLAGS, "dense_conv")
 
 
 def _load():
@@ -204,11 +209,11 @@ def dense_conv3x3(buf: torch.Tensor, cin: int, w: torch.Tensor,
     err = lib.dense_conv3x3_launch(
         buf.data_ptr(), w.data_ptr(), bias_a.data_ptr(), b3.data_ptr(),
         part.data_ptr(), m, h, wd, p, cin, g, geo.row_w, geo.tile_n,
-        geo.splits, slope, _stream())
-    _raise_if(err, "dense_conv3x3_fprop_kernel")
-    _launched(dense_conv3x3)
+        geo.splits, slope, stream())
+    check_launch(err, "dense_conv3x3_fprop_kernel")
+    count_launch(dense_conv3x3)
     if geo.row_w:
-        _launched(dense_conv3x3, "narrow_launches")
+        count_launch(dense_conv3x3, "narrow_launches")
     if geo.splits > 1:
         splitk_reduce(lib, buf, part, bias_a, b3,
                       (m, h, wd, p, cin, g, geo.tile_n), geo.splits, slope)
@@ -218,9 +223,9 @@ def splitk_reduce(lib, buf, part, bias_a, b3, shape, splits, slope) -> None:
     """Launch the reduce of a split call's partials (its own counter)."""
     err = lib.dense_conv3x3_reduce_launch(
         buf.data_ptr(), part.data_ptr(), bias_a.data_ptr(), b3.data_ptr(),
-        *shape, splits, slope, _stream())
-    _raise_if(err, "dense_conv3x3_splitk_reduce_kernel")
-    _launched(splitk_reduce)
+        *shape, splits, slope, stream())
+    check_launch(err, "dense_conv3x3_splitk_reduce_kernel")
+    count_launch(splitk_reduce)
 
 
 # launch counts: each wrapper adds one where it launches its kernel (or to

@@ -71,7 +71,7 @@ class ShardedFlowCodec:
         cond = self._cond(cond)
 
         def decode():
-            xs, oks = self.codec._decompress_deferred_many(
+            xs, oks = self.codec.decode_queue(
                 [(mine, local)], None if cond is None else [cond])
             return xs[0], oks
 

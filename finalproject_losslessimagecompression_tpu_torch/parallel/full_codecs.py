@@ -61,7 +61,7 @@ class ShardedResidualCodec:
                 local)
 
         def decode():
-            xs, oks = self.res._decompress_deferred_many([mine])
+            xs, oks = self.res.decode_queue([mine])
             return xs[0], oks
 
         return gather_checked(self.mesh, decode, fetch)
@@ -117,7 +117,7 @@ class ShardedTwoLevelCodec:
         mine = (self.device_slice(blobs, self.mesh.rank), local)
 
         def decode():
-            xs, oks = self.tl._decompress_deferred_many([mine])
+            xs, oks = self.tl.decode_queue([mine])
             return xs[0], oks
 
         return gather_checked(self.mesh, decode, fetch)

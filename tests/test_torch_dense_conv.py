@@ -276,7 +276,7 @@ def _on_card(monkeypatch, lib):
     """Route the wrapper's CUDA path to `lib` on CPU tensors."""
     monkeypatch.setattr(dense_conv, "_load", lambda: lib)
     monkeypatch.setattr(dense_conv, "_sms", lambda index: 132)
-    monkeypatch.setattr(dense_conv, "_stream", lambda: 0)
+    monkeypatch.setattr(dense_conv, "stream", lambda: 0)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
 
 
@@ -304,9 +304,7 @@ def test_wrapper_launches_the_geometry(monkeypatch):
     `splitk_reduce.launches`.  Inside `record_launches` the launches go to
     the capture's tally instead, and each replay of the counted graph adds
     them."""
-    from finalproject_losslessimagecompression_tpu_torch.codec import (
-        cuda_rans,
-    )
+    from finalproject_losslessimagecompression_tpu_torch.utils import graphs
 
     lib = _FakeLib()
     _on_card(monkeypatch, lib)
@@ -326,13 +324,13 @@ def test_wrapper_launches_the_geometry(monkeypatch):
     assert tuple(a - b for a, b in zip(_counts(), c0)) == (3, 2, 2)
 
     c1 = _counts()
-    with cuda_rans.record_launches() as tally:
+    with graphs.record_launches() as tally:
         dense_conv.dense_conv3x3(*_layer(*narrow), 0.0)
     assert tally == {dense_conv.dense_conv3x3: 1,
                      (dense_conv.dense_conv3x3, "narrow_launches"): 1,
                      dense_conv.splitk_reduce: 1}
     assert _counts() == c1
-    graph = cuda_rans.CountedGraph(type("Stub", (), {
+    graph = graphs.CountedGraph(type("Stub", (), {
         "replay": lambda self: None})(), tally)
     graph.replay()
     graph.replay()

@@ -42,7 +42,6 @@ from finalproject_losslessimagecompression_tpu_torch.codec.interleaved import ( 
 from finalproject_losslessimagecompression_tpu_torch.convert import (
     params_from_flax,
 )
-from finalproject_losslessimagecompression_tpu_torch.models import exact
 from finalproject_losslessimagecompression_tpu_torch.models.twolevel import (  # noqa: E501
     TwoLevelCfg,
     TwoLevelFlow,
@@ -53,6 +52,7 @@ from finalproject_losslessimagecompression_tpu_torch.models.twolevel_codec impor
 from finalproject_losslessimagecompression_tpu_torch.train.checkpoint import (
     save_checkpoint,
 )
+from finalproject_losslessimagecompression_tpu_torch.utils import graphs
 
 torch.set_num_threads(2)  # the suite runs several workers at once
 # the first parallel CPU exp of a process can be off (ROADMAP section 3):
@@ -62,6 +62,7 @@ torch.exp(torch.zeros(1 << 16))
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "tests"))
 from test_torch_residual import _flow_dict  # noqa: E402
+from test_torch_graphs import stub_graphs  # noqa: E402
 from test_torch_twolevel import _tl_dict  # noqa: E402
 
 MODES = ("level", "nn", "fused")
@@ -161,7 +162,7 @@ def _outlier_batch():
 
 
 @pytest.mark.parametrize("max_outliers", [4, 256])
-def test_escape_matrix(max_outliers):
+def test_escape_matrix(max_outliers, monkeypatch):
     """MAX_OUTLIERS 4: the fused program is not called, the queue takes
     the level path (counted) and round-trips exactly.  The default 256:
     the escapes are patched inside the fused program, exactly.
@@ -175,8 +176,9 @@ def test_escape_matrix(max_outliers):
     counts = [unpack_streams(b).oow_count for b in blobs]
     assert 4 < max(counts) <= 256, counts
     fused_called = []
-    real = codec._fused
-    codec._fused = lambda *a: fused_called.append(1) or real(*a)
+    real = graphs.GraphCache.__call__
+    monkeypatch.setattr(graphs.GraphCache, "__call__", lambda *a: (
+        fused_called.append(1) or real(*a)))
     rec = codec.decompress(blobs, info, fetch=True)
     assert np.array_equal(rec, x)
     over = max(counts) > max_outliers
@@ -221,7 +223,7 @@ def test_device_side_hole_fill_and_tail_check_equal_host():
             zip(packed, batches)]
     want = codecs["level"].decompress_pipeline(encs, batches)
     assert isinstance(encs[0][1].donated, int)
-    got = codecs["fused"]._decompress_deferred_many(packed)
+    got = codecs["fused"].decode_queue(packed)
     for a, b in zip(want[0] + want[1], got[0] + got[1]):
         assert torch.equal(a, b)
     assert all(bool(ok) for ok in got[1])
@@ -284,7 +286,7 @@ def test_granularity_resolution(monkeypatch):
     assert TM.FlowCodec(tm, granularity="nn").granularity == "level"
     with pytest.raises(ValueError, match="granularity"):
         TM.FlowCodec(tm, granularity="program")
-    monkeypatch.setattr(exact, "set_deterministic_cuda", lambda: None)
+    monkeypatch.setattr(graphs, "set_deterministic_cuda", lambda: None)
     on_card = SimpleNamespace(cfg=tm.cfg, plans=tm.plans,
                               device=torch.device("cuda"))
     assert TM.FlowCodec(on_card).granularity == "fused"
@@ -292,35 +294,29 @@ def test_granularity_resolution(monkeypatch):
 
 
 def test_replay_accounting_through_a_stub_graph():
-    """Launches during a capture (or its warm-up) go to the capture's
-    tally, not the counters; every replay adds the tally.  The codec's
-    fused mode runs a key's first call eagerly, captures at the second,
-    fills the static inputs on every call and clones the outputs, so an
-    earlier result survives a later replay.  Tolerance: exact."""
+    """Launches during a capture go to the capture's tally, not the
+    counters; every replay adds the tally.  The codec's graph cache runs a
+    key's first call eagerly, captures at its second (the launches the
+    graph holds tallied, none counted), fills the static inputs on every
+    call and clones the outputs, so an earlier result survives a later
+    replay.  Tolerance: exact."""
     wrappers = (cuda_rans.rans_cdf_prepass, cuda_rans.rans_encode,
                 cuda_rans.rans_decode)
     before = [w.launches for w in wrappers]
-    with cuda_rans.record_launches():  # a warm-up: counted nowhere
-        cuda_rans._launched(cuda_rans.rans_decode)
-    with cuda_rans.record_launches() as tally:
+    with graphs.record_launches() as tally:
         for w in wrappers + wrappers[1:]:
-            cuda_rans._launched(w)
+            graphs.count_launch(w)
     assert [w.launches for w in wrappers] == before
     assert tally == {wrappers[0]: 1, wrappers[1]: 2, wrappers[2]: 2}
 
     class Stub:
         replays = 0
 
-        def __init__(self, run=None):
-            self.run = run
-
         def replay(self):
             self.replays += 1
-            if self.run:
-                self.run()
 
     stub = Stub()
-    graph = cuda_rans.CountedGraph(stub, tally)
+    graph = graphs.CountedGraph(stub, tally)
     graph.replay()
     graph.replay()
     assert stub.replays == 2
@@ -328,29 +324,28 @@ def test_replay_accounting_through_a_stub_graph():
 
     _, _, tm = _pair()
     codec = TM.FlowCodec(tm, num_streams=64, granularity="fused")
-    codec.graphs = True  # the card's path, with stub graphs on the CPU
+    cache = codec.graph_cache
+    stub_graphs(cache)  # the card's path, with stub graphs on the CPU
+    record = cache._record
 
-    def capture(run):
-        with cuda_rans.record_launches() as t:
-            out = run()
-            cuda_rans._launched(cuda_rans.rans_decode)
-        codec.captures += 1
-        return cuda_rans.CountedGraph(
-            Stub(lambda: out.copy_(run())), t), out
+    def record_a_decode(run):
+        graphs.count_launch(cuda_rans.rans_decode)  # a launch it holds
+        return record(run)
 
-    codec._capture = capture
+    cache._record = record_a_decode
     decodes = cuda_rans.rans_decode.launches
 
     def call(key, value):
-        return codec._fused(key, ([torch.full((3,), float(value))],),
-                            lambda s: s[0] * 2)
+        return cache(key, lambda s: s[0] * 2,
+                     ([torch.full((3,), float(value))],))
 
     # first sight runs eagerly; the second captures and replays
     first = call("k", 1)
-    assert codec.captures == 0 and len(codec._graphs) == 0
+    assert codec.captures == 0 and len(cache.entries) == 0
     second = call("k", 5)
+    assert cuda_rans.rans_decode.launches == decodes + 1
     third = call("k", 7)
-    assert codec.captures == 1
+    assert codec.captures == 1 and codec.replays == 2
     for got, v in ((first, 1), (second, 5), (third, 7)):
         assert torch.equal(got, torch.full((3,), 2.0 * v))
     assert cuda_rans.rans_decode.launches == decodes + 2
@@ -363,39 +358,27 @@ def test_graph_cache_is_bounded_least_recently_used_first():
     and is captured anew when met again.  Tolerance: exact."""
     _, _, tm = _pair()
     codec = TM.FlowCodec(tm, num_streams=64, granularity="fused")
-    codec.graphs = True
-    codec.MAX_GRAPHS, codec.MAX_SEEN = 2, 3
-
-    class Graph:
-        def __init__(self, out, run):
-            self.out, self.run = out, run
-
-        def replay(self):
-            self.out.copy_(self.run())
-
-    def capture(run):
-        codec.captures += 1
-        out = run()
-        return Graph(out, run), out
-
-    codec._capture = capture
+    cache = codec.graph_cache
+    stub_graphs(cache)
+    cache.MAX_GRAPHS, cache.MAX_SEEN = 2, 3
 
     def call(key):
-        got = codec._fused(key, ([torch.full((2,), float(key))],),
-                           lambda s: s[0] + 1)
+        got = cache(key, lambda s: s[0] + 1,
+                    ([torch.full((2,), float(key))],))
         assert torch.equal(got, torch.full((2,), key + 1.0))
 
     for key in range(10):  # distinct layouts: nothing captured
         call(key)
-    assert codec.captures == 0 and list(codec._seen) == [7, 8, 9]
+    assert codec.captures == 0 and list(cache.seen) == [7, 8, 9]
     for key in (1, 2, 3, 1, 2, 3):  # 1 and 2 captured, then 3 drops 1
         call(key)
-    assert codec.captures == 3 and list(codec._graphs) == [2, 3]
+    assert codec.captures == 3 and list(cache.entries) == [2, 3]
     call(2)  # a replay makes 2 the most recent
     call(1)  # dropped: eagerly, then captured at its next call
     assert codec.captures == 3
     call(1)
-    assert codec.captures == 4 and list(codec._graphs) == [2, 1]
+    assert codec.captures == 4 and list(cache.entries) == [2, 1]
+    assert codec.evictions == 2
 
 
 def test_twolevel_fused_equals_level():

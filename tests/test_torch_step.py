@@ -54,6 +54,7 @@ from finalproject_losslessimagecompression_tpu_torch.train import (
 from finalproject_losslessimagecompression_tpu_torch.utils.graphs import (
     GraphedStep,
 )
+from test_torch_graphs import stub_graphs
 
 torch.set_num_threads(2)  # the suite runs several workers at once
 # a process's first parallel CPU exp can be inaccurate (test_torch_flow.py)
@@ -497,47 +498,6 @@ def test_trainer_steps_go_through_graphs(kind, tmp_path, monkeypatch,
 # ---------------------------------------------------------------------------
 
 
-def _write(dst, src):
-    if isinstance(dst, torch.Tensor):
-        dst.copy_(src)
-    elif isinstance(dst, dict):
-        for k in dst:
-            _write(dst[k], src[k])
-    elif isinstance(dst, (list, tuple)):
-        for d, s_ in zip(dst, src):
-            _write(d, s_)
-
-
-class _StubGraph:
-    """What a CUDA graph's replay does, on the CPU: the body over the
-    static inputs, its results written into the static outputs.  The
-    recording ran the capturing call's work (a CUDA capture runs none and
-    its replay does it), so the first replay does nothing."""
-
-    def __init__(self, body, inputs, outputs):
-        self.body, self.inputs, self.outputs = body, inputs, outputs
-        self.recorded = True
-
-    def replay(self):
-        if self.recorded:
-            self.recorded = False
-            return
-        _write(self.outputs, self.body(*self.inputs))
-
-
-def _stub_graphs(step):
-    """Turn a GraphedStep's graphs on with stub graphs (the card's call
-    sequence: eager first call, capture, replays)."""
-    step.graphs = True
-    step._on_side_stream = lambda args: step.body(*args)
-
-    def record(inputs):
-        outputs = step.body(*inputs)
-        return _StubGraph(step.body, inputs, outputs), outputs
-
-    step._record = record
-
-
 def _state(t, opt):
     out = dict(t.model.state_dict())
     sd = opt.state_dict()
@@ -566,7 +526,7 @@ def test_graphed_call_sequence_equals_eager(kind, tmp_path):
     a, steps, one_step, updates = _build(kind, tmp_path / "a")
     b, twin_steps, _, _ = _build(kind, tmp_path / "b")
     for s_ in steps:
-        _stub_graphs(s_)
+        stub_graphs(s_.cache)
     opt_a = a.tuner_opt if kind == "finetune" else a.optimizer
     opt_b = b.tuner_opt if kind == "finetune" else b.optimizer
     seen = []

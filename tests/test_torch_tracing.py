@@ -14,7 +14,6 @@ is the union of the device intervals over its window.
 from __future__ import annotations
 
 import collections
-import dataclasses
 from types import SimpleNamespace
 
 import numpy as np
@@ -30,6 +29,7 @@ from finalproject_losslessimagecompression_tpu_torch.utils import profiling
 from finalproject_losslessimagecompression_tpu_torch.utils.graphs import (
     GraphedStep,
 )
+from test_torch_graphs import stub_graphs
 
 WINDOW = "test.window"
 PREFIXES = ("codec.", "residual.", "step.")
@@ -89,42 +89,6 @@ def _flow():
     return TM.IDFlow(cfg, device="cpu").eval()
 
 
-def _write(dst, src):
-    """Copy src's tensors into dst's (tensors, lists, tuples and
-    dataclasses of them), as a replay writes its static outputs."""
-    if isinstance(dst, torch.Tensor):
-        dst.copy_(src)
-    elif dataclasses.is_dataclass(dst):
-        for f in dataclasses.fields(dst):
-            _write(getattr(dst, f.name), getattr(src, f.name))
-    elif isinstance(dst, (list, tuple)):
-        for d, s in zip(dst, src):
-            _write(d, s)
-
-
-class _StubGraph:
-    """A replay on the CPU: the captured function over the static inputs,
-    its results written into the static outputs."""
-
-    def __init__(self, run, outputs):
-        self.run, self.outputs = run, outputs
-
-    def replay(self):
-        _write(self.outputs, self.run())
-
-
-def _stub_graphs(codec):
-    """The card's graph path of a FlowCodec, with stub graphs."""
-    codec.graphs = True
-
-    def capture(run):
-        out = run()
-        codec.captures += 1
-        return _StubGraph(run, out), out
-
-    codec._capture = capture
-
-
 def _profiled(fn):
     """(fn(), [(name, start ns, end ns)] of the program spans and of the
     window) under a CPU profile whose window is a record_function."""
@@ -168,8 +132,8 @@ def test_flow_codec_spans_on_the_profilers_timeline():
     round trip is exact, and each counted span's count equals its
     counter's change."""
     codec = TM.FlowCodec(_flow(), num_streams=64, granularity="fused")
-    _stub_graphs(codec)
-    codec.MAX_GRAPHS = 1
+    stub_graphs(codec.graph_cache)
+    codec.graph_cache.MAX_GRAPHS = 1
     xs = [_images(1)]
     wild = _images(2)
     wild[:, ::3, ::3, 0] += 40.0  # far outside any prior's window
@@ -240,14 +204,7 @@ def test_graphed_step_spans_equal_its_counters(graphs):
                        before=lambda x: seen.append("before"),
                        after=lambda: seen.append("after"))
     if graphs:
-        step.graphs = True
-        step._on_side_stream = lambda args: step.body(*args)
-
-        def record(inputs):
-            out = step.body(*inputs)
-            return _StubGraph(lambda: step.body(*inputs), out), out
-
-        step._record = record
+        stub_graphs(step.cache)
     calls = 4
     _, events = _profiled(lambda: [step(torch.ones(3)) for _ in
                                    range(calls)])
@@ -277,7 +234,7 @@ def test_spans_enter_nothing_without_a_profiler_or_timer(monkeypatch):
     monkeypatch.setattr(torch.profiler, "record_function", refuse)
     assert profiling.span("a") is profiling.span("b")
     codec = TM.FlowCodec(_flow(), num_streams=64, granularity="fused")
-    _stub_graphs(codec)
+    stub_graphs(codec.graph_cache)
     xs = [_images(4)]
     for _ in range(3):
         got = codec.decompress_many(codec.compress_many(xs), fetch=True)
